@@ -8,17 +8,27 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
 0. environment: the card's name and power limit, torch and CUDA versions,
    the kernel build time;
 1. every kernel against its plain PyTorch version on the card, at test
-   shapes and at the shapes the main path gives it, with times;
+   shapes and at the shapes the main path gives it, with times
+   (``embedding_bag`` at its main-path shape in phase 4, on DIN's batch);
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
    card, exactness of the batched engine against the scalar oracle on
    the first 64 ops, DiDiC's run-to-run determinism;
-3. DiDiC's ``bell_matmul`` route on GIS at ``scale=0.01``.
+3. DiDiC's ``bell_matmul`` route on GIS at ``scale=0.01``;
+4. DIN at its full config (``configs/din.FULL``): scoring 262,144
+   requests, the user tower through ``embedding_bag``, one user against
+   1,000,000 candidates;
+5. granite-3-8b at its full config and depth (``configs/granite_3_8b.FULL``,
+   random bf16 weights): the forward pass and loss over 4,096 tokens
+   through ``flash_attention``, then the continuous-batching server
+   answering 8 requests, twice.
 
-The main path is each replay of phase 2 and the kernel-route DiDiC run of
-phase 3: the launch counts are set to 0 just before each of them and read
-just after, and their sum is each kernel's ``launches``.
+Each kernel's ``launches`` come from its main-path runs: each replay of
+phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
+(``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``)
+and the granite forward call of phase 5 (``flash_attention``). The launch
+counts are set to 0 just before each of them and read just after.
 
 It prints one line per check, then a JSON line with every kernel's
 record, the ``nvidia-smi`` name and power-limit line, and last
@@ -43,8 +53,10 @@ import torch  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 on the tensor cores
 N_OPS = 10_000               # the paper's evaluation-log length (§6.1)
 DIDIC_ITERATIONS = 100       # the paper's initial partitioning (§7.3)
+KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention")
 
 
 class CheckFailed(RuntimeError):
@@ -61,8 +73,10 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+def time_cuda(fn, reps: int = 10, warmup: int = 2):
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events, and
+    the result of its last run. Host work inside ``fn`` counts: the stream
+    waits for it between the two events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -71,16 +85,22 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        out = fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def once(fn):
+    """``fn``'s result and its time in seconds, one run with no warm-up."""
+    ms, out = time_cuda(fn, reps=1, warmup=0)
+    return out, ms / 1e3
+
+
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -161,8 +181,8 @@ def phase1_frontier(dev, gis_engine, records):
     want = frontier_gather_ref(g, nbr, w_inf, mode="min")
     check(torch.equal(got, want), f"frontier_gather min on the GIS full layout [{v}x{d}], C=128: bit-exact")
     err = float((got - want).nan_to_num(0.0, 0.0, 0.0).abs().max())
-    ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"))
-    plain_ms = time_cuda(lambda: frontier_gather_ref(g, nbr, w_inf, mode="min"), reps=5)
+    ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"))[0]
+    plain_ms = time_cuda(lambda: frontier_gather_ref(g, nbr, w_inf, mode="min"), reps=5)[0]
     n_bytes = w_pad * 128 * 4 + v * d * 8 + v * 128 * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * v * d * 128)
     say(f"phase 1: frontier_gather min [{v}x{d}] C=128: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -226,9 +246,9 @@ def phase1_bell(dev, records):
     lib = _bsr_library(bell, dev)
     lib_out = lib @ x
     check(torch.allclose(lib_out, want, rtol=1e-4, atol=1e-4), "BSR library call agrees (yardstick)")
-    ms = time_cuda(lambda: bell_matmul(blocks, cols, mask, x))
-    plain_ms = time_cuda(lambda: bell_matmul_ref(blocks, cols, mask, x), reps=5)
-    library_ms = time_cuda(lambda: lib @ x)
+    ms = time_cuda(lambda: bell_matmul(blocks, cols, mask, x))[0]
+    plain_ms = time_cuda(lambda: bell_matmul_ref(blocks, cols, mask, x), reps=5)[0]
+    library_ms = time_cuda(lambda: lib @ x)[0]
     nnzb = int(bell.block_mask.sum())
     bs = bell.block_size
     n_bytes = nnzb * bs * bs * 4 + bell.block_cols.size * 8 + 2 * bell.padded_rows * 4 * 4
@@ -372,6 +392,270 @@ def phase3(dev, main_launches):
     check(ratio <= 1.5, f"kernel-route edge cut within 1.5x of the segment route's ({ratio:.3f}x)")
 
 
+def bf16_gaps(got, want, tile: int = 64):
+    """How far a bfloat16 attention output ``got [H, T, Dh]`` lies from
+    ``want``, the same function computed in float32 and rounded to
+    bfloat16: whether every element is within atol 4e-3 + rtol 1.6e-2
+    (two bfloat16 steps), the largest absolute gap, and the largest
+    relative L2 gap of one (head, ``tile``-query tile)."""
+    g, w = got.float(), want.float()
+    close = bool(torch.allclose(g, w, rtol=1.6e-2, atol=4e-3))
+    h, t, dh = w.shape
+    gt, wt = g.reshape(h, t // tile, tile * dh), w.reshape(h, t // tile, tile * dh)
+    tile_gap = float(((gt - wt).norm(dim=-1) / wt.norm(dim=-1).clamp_min(1e-30)).max())
+    return close, float((g - w).abs().max()), tile_gap
+
+
+def phase1_flash(dev, records):
+    """``flash_attention`` at the JAX package's test shapes (float32 within
+    2e-5, bfloat16 within 3e-2) and at granite-3-8b's prefill shape, where
+    the bar is set by bfloat16 rounding of the output (``bf16_gaps``)."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ref import TEST_SHAPES
+
+    rng = np.random.default_rng(0)
+    for b, hq, hkv, tq, tk, dh, causal, qoff in TEST_SHAPES:
+        q, k, v = (torch.as_tensor(rng.normal(size=(b * h, t, dh)).astype(np.float32), device=dev)
+                   for h, t in ((hq, tq), (hkv, tk), (hkv, tk)))
+        got = flash_attention(q, k, v, causal=causal, q_offset=qoff)
+        want = attention_ref(q, k, v, causal=causal, q_offset=qoff)
+        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+              f"flash_attention f32 B={b} Hq={hq} Hkv={hkv} Tq={tq} Tk={tk} Dh={dh} "
+              f"causal={causal} q_offset={qoff}: within 2e-5")
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.bfloat16, device=dev)
+               for s in ((4, 64, 32), (2, 64, 32), (2, 64, 32)))
+    got = flash_attention(q, k, v).float()
+    check(torch.allclose(got, attention_ref(q.float(), k.float(), v.float()), rtol=3e-2, atol=3e-2),
+          "flash_attention bf16 [4x64x32] against float32 attention: within 3e-2")
+
+    # The main path's shape: granite-3-8b prefill, B=1, Hq=32, Hkv=8, T=4096, Dh=128.
+    hq, hkv, t, dh = 32, 8, 4096, 128
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((h, t, dh), generator=gen, device=dev).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    got = flash_attention(q, k, v)
+    want = attention_ref(q, k, v)
+    close, err, tile_gap = bf16_gaps(got, want)
+    # Outputs here are ~0.03 (means of up to 4,096 unit values), so the
+    # JAX tests' 3e-2 would be as large as the values themselves.
+    check(close, f"flash_attention bf16 at granite's prefill shape [{hq}x{t}x{dh}], kv {hkv}: "
+                 f"within atol 4e-3 + rtol 1.6e-2, two bf16 steps (max abs {err:.3g})")
+    check(tile_gap <= 2.0 ** -7, f"flash_attention bf16 at granite's prefill shape: every (head, 64-query tile) "
+                                 f"within a relative L2 gap of 2^-7, one bf16 step (largest {tile_gap:.3g})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = q[None], k[None], v[None]
+    lib_out = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)[0]
+    check(torch.allclose(lib_out.float(), want.float(), rtol=3e-2, atol=3e-2),
+          "scaled_dot_product_attention agrees (yardstick)")
+    ms = time_cuda(lambda: flash_attention(q, k, v))[0]
+    plain_ms = time_cuda(lambda: attention_ref(q, k, v), reps=5)[0]
+    library_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True))[0]
+    pairs = t * (t + 1) // 2                  # causal (query, key) pairs this call computes
+    n_flops = 4.0 * hq * pairs * dh           # q.k and p.v, two operations a multiply-add
+    n_bytes = (2 * hq + 2 * hkv) * t * dh * 2  # q, k, v read once, o written once, bf16
+    b_ms, b_by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
+    say(f"phase 1: flash_attention bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s); "
+        f"kernel {n_flops / ms / 1e9:.1f} TFLOP/s")
+    records["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    }
+
+
+def _embedding_bag_checks(dev, params, batch, records):
+    """``embedding_bag`` at the JAX package's test shapes (within 1e-6) and
+    at the main path's shape: DIN's item table, 262,144 bags of 100."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_auto, embedding_bag_ref
+    from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES
+
+    rng = np.random.default_rng(3)
+    for v, d, b, l in TEST_SHAPES:
+        table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32), device=dev)
+        idx = torch.as_tensor(rng.integers(0, v, size=(b, l)).astype(np.int32), device=dev)
+        w = rng.random((b, l)).astype(np.float32)
+        w[:, -1] = 0.0
+        w = torch.as_tensor(w, device=dev)
+        check(torch.allclose(embedding_bag(table, idx, w), embedding_bag_ref(table, idx, w),
+                             rtol=1e-6, atol=1e-6), f"embedding_bag V={v} D={d} B={b} L={l}: within 1e-6")
+
+    table, idx, mask = params["item_embed"], batch["hist_items"], batch["hist_mask"]
+    w = mask / torch.clamp(mask.sum(dim=1, keepdim=True), min=1e-9)  # mean mode's weights
+    got = embedding_bag_auto(table, idx, mask, mode="mean")
+    want = embedding_bag_ref(table, idx, w)
+    err = float((got - want).abs().max())
+    b, l = idx.shape
+    v, d = table.shape
+    check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+          f"embedding_bag mean over DIN's item table [{v}x{d}], {b} bags of {l}: within 1e-6 (max {err:.3g})")
+    idx64 = idx.long()
+    lib = torch.nn.functional.embedding_bag
+    check(torch.allclose(lib(idx64, table, per_sample_weights=w, mode="sum"), want, rtol=1e-5, atol=1e-5),
+          "torch.nn.functional.embedding_bag agrees (yardstick)")
+    ms = time_cuda(lambda: embedding_bag(table, idx, w))[0]
+    plain_ms = time_cuda(lambda: embedding_bag_ref(table, idx, w), reps=5)[0]
+    library_ms = time_cuda(lambda: lib(idx64, table, per_sample_weights=w, mode="sum"))[0]
+    n_bytes = v * d * 4 + 2 * b * l * 4 + b * d * 4  # table, idx, w read once; out written once
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * b * l * d)
+    say(f"phase 4: embedding_bag [{v}x{d}] table, {b}x{l} bags: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch embedding_bag {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB; "
+        f"the gathered rows are {b * l * d * 4 / 1e9:.3f} GB)")
+    records["embedding_bag"] = {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:39",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    }
+
+
+def phase4_din(dev, records, main_launches):
+    """DIN at ``configs/din.FULL``: the catalogue's serve_bulk (262,144
+    requests) and retrieval_cand (one user, 1,000,000 candidates) shapes.
+    The ``user_vector`` call is the main path of ``embedding_bag``."""
+    from repro_torch import kernels
+    from repro_torch.configs.din import FULL
+    from repro_torch.data.pipeline import din_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+    from repro_torch.models import recsys
+
+    cfg = FULL
+    n_req = 262_144
+    params = recsys.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    host, host_s = once(lambda: din_batch(n_req, cfg.seq_len, cfg.n_items, cfg.n_cats, seed=0))
+    batch = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
+    say(f"phase 4: DIN {cfg.n_items} items, {cfg.n_cats} categories, width {cfg.embed_dim}, "
+        f"history {cfg.seq_len}; batch of {n_req} made in {host_s:.2f} s")
+    _embedding_bag_checks(dev, params, batch, records)
+
+    small = {k: t[:512] for k, t in batch.items()}
+    cpu_params = {k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    with torch.no_grad():
+        on_card = recsys.forward(cfg, params, small).cpu()
+        on_cpu = recsys.forward(cfg, cpu_params, {k: t.cpu() for k, t in small.items()})
+        check(torch.allclose(on_card, on_cpu, rtol=1e-5, atol=1e-5),
+              "DIN forward on the card == on the CPU, 512 requests, within 1e-5")
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        logits, score_s = once(lambda: recsys.forward(cfg, params, batch))
+        score_launches = kernels.launch_counts()["embedding_bag"]
+        score_peak = torch.cuda.max_memory_allocated()
+        check(tuple(logits.shape) == (n_req,) and bool(torch.isfinite(logits).all()),
+              f"DIN scores {n_req} requests: finite logits of shape [{n_req}]")
+        check(score_launches == 0, "DIN scoring pools with softmax weights and launches no embedding_bag")
+        loss = float(recsys.bce_loss(cfg, params, batch))
+        check(np.isfinite(loss), f"DIN BCE loss {loss:.4f} is finite")
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        uv, uv_s = once(lambda: recsys.user_vector(cfg, params, batch))
+        counts = kernels.launch_counts()
+        _add_counts(main_launches, counts)
+        uv_peak = torch.cuda.max_memory_allocated()
+        check(counts["embedding_bag"] == 2, f"user_vector launched embedding_bag twice ({counts['embedding_bag']})")
+        w = batch["hist_mask"] / torch.clamp(batch["hist_mask"].sum(dim=1, keepdim=True), min=1e-9)
+        want = torch.cat([embedding_bag_ref(params["item_embed"], batch["hist_items"], w),
+                          embedding_bag_ref(params["cat_embed"], batch["hist_cats"], w)], dim=-1)
+        check(tuple(uv.shape) == (n_req, 2 * cfg.embed_dim) and torch.allclose(uv, want, rtol=1e-6, atol=1e-6),
+              f"user_vector [{n_req}x{2 * cfg.embed_dim}] == plain pooling within 1e-6")
+
+        cand = torch.arange(1_000_000, device=dev) % cfg.n_items
+        recsys.retrieval_scores(cfg, params, uv[:1], cand, cand % cfg.n_cats)  # warm-up
+        scores, retr_s = once(lambda: recsys.retrieval_scores(cfg, params, uv[:1], cand, cand % cfg.n_cats))
+        check(tuple(scores.shape) == (1, 1_000_000) and bool(torch.isfinite(scores).all()),
+              "retrieval: one user against 1,000,000 candidates, finite scores")
+    say(json.dumps({
+        "phase": 4, "model": cfg.name, "requests": n_req,
+        "score_s": score_s, "requests_per_s": n_req / score_s, "score_peak_device_bytes": score_peak,
+        "user_vector_s": uv_s, "user_vectors_per_s": n_req / uv_s, "user_vector_peak_device_bytes": uv_peak,
+        "retrieval_1x1M_s": retr_s, "bce_loss": loss, "embedding_bag_launches_in_user_vector": 2,
+        "embedding_bag_launches_in_scoring": score_launches,
+    }))
+
+
+def phase5_lm(dev, main_launches):
+    """granite-3-8b at ``configs/granite_3_8b.FULL``, all 40 layers, random
+    bf16 weights: forward and loss over 4,096 tokens (the ``flash_attention``
+    main path), then the server on 8 requests, twice."""
+    from repro_torch import kernels
+    from repro_torch.configs.granite_3_8b import FULL
+    from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = FULL
+    params, init_s = once(lambda: tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(t.numel() for t in (params["embed"], params["lm_head"], params["ln_f"]["scale"]))
+    n_params += sum(t.numel() for leaves in params["layers"].values() for t in leaves.values())
+    check(n_params == cfg.param_count(), f"granite-3-8b: {n_params:,} parameters drawn on the card in {init_s:.2f} s")
+
+    with torch.no_grad():
+        # Prefill (through flash_attention) against decode (the cache path)
+        # on 16 tokens: the same causal function, so the logits agree to
+        # bf16 rounding over 40 layers.
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 16)), device=dev)
+        pre, _ = tf.forward(cfg, params, toks)
+        cache = tf.init_kv_cache(cfg, 1, 16, device=dev)
+        dec = torch.stack([tf.serve_step(cfg, params, toks[:, t], cache, t)[0] for t in range(16)], dim=1)
+        rel = float((pre.float() - dec.float()).norm() / dec.float().norm())
+        check(bool(torch.isfinite(pre).all()) and rel < 0.1,
+              f"granite prefill == token-by-token decode on 16 tokens: relative L2 gap {rel:.4f} < 0.1")
+
+        batch = next(lm_token_stream(LmDataConfig(vocab=cfg.vocab, seq_len=4096, batch=1, seed=0)))
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        (logits, _), fwd_s = once(lambda: tf.forward(cfg, params, tokens))
+        counts = kernels.launch_counts()
+        _add_counts(main_launches, counts)
+        fwd_peak = torch.cuda.max_memory_allocated()
+        check(counts["flash_attention"] == cfg.n_layers,
+              f"granite forward over 4096 tokens launched flash_attention {counts['flash_attention']} times "
+              f"(one a layer)")
+        check(tuple(logits.shape) == (1, 4096, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              f"granite logits [1x4096x{cfg.vocab}] are finite")
+        del logits
+        _, fwd2_s = once(lambda: tf.forward(cfg, params, tokens))
+        loss, loss_s = once(lambda: float(tf.loss_fn(cfg, params, {"tokens": tokens, "labels": labels})))
+        check(np.isfinite(loss), f"granite loss {loss:.4f} is finite (ln V = {np.log(cfg.vocab):.4f})")
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(2, 8)) for _ in range(8)]
+    runs = []
+    for _ in range(2):
+        eng = ServingEngine(cfg, params, batch_slots=4, max_len=128, device=dev)
+        reqs = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launch_counts()
+        _, serve_s = once(eng.run_until_drained)
+        flash = kernels.launch_counts()["flash_attention"]
+        check(all(r.done and len(r.generated) == 16 for r in reqs),
+              f"granite server answered all 8 requests, 16 tokens each ({serve_s:.2f} s)")
+        check(flash == 0, "the server decodes through the cache path and launches no flash_attention")
+        runs.append(([r.generated for r in reqs], serve_s))
+        del eng
+    check(runs[0][0] == runs[1][0], "granite server: two runs give the same tokens")
+    n_tok = sum(len(g) for g in runs[0][0])
+    n_prompt = sum(len(p) for p in prompts)
+    say(json.dumps({
+        "phase": 5, "model": cfg.name, "parameters": n_params, "init_s": init_s,
+        "forward_tokens": 4096, "forward_first_s": fwd_s, "forward_s": fwd2_s,
+        "forward_tokens_per_s": 4096 / fwd2_s, "forward_peak_device_bytes": fwd_peak,
+        "loss": loss, "loss_s": loss_s, "flash_attention_launches_per_forward": counts["flash_attention"],
+        "serve_requests": 8, "serve_prompt_tokens": n_prompt, "serve_new_tokens": n_tok,
+        "serve_s": [r[1] for r in runs], "serve_new_tokens_per_s": [n_tok / r[1] for r in runs],
+        "prefill_decode_rel_gap": rel,
+    }))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -394,6 +678,7 @@ def main() -> int:
     records = {}
     phase1_frontier(dev, get_engine(graphs["gis"], "gis_short", device=dev), records)
     phase1_bell(dev, records)
+    phase1_flash(dev, records)
     say(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {}
@@ -402,17 +687,23 @@ def main() -> int:
         say(f"phase 2 {name} done at {time.perf_counter() - t_start:.1f} s")
     phase3(dev, main_launches)
     say(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
-    say("main-path launches (the replays of phase 2 and the kernel-route DiDiC of phase 3): "
-        + json.dumps(main_launches, sort_keys=True))
-    for name in ("frontier_gather", "bell_matmul"):
+    del graphs
+    torch.cuda.empty_cache()
+    phase4_din(dev, records, main_launches)
+    torch.cuda.empty_cache()
+    say(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    phase5_lm(dev, main_launches)
+    say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
+        "user_vector in phase 4, the granite forward in phase 5): " + json.dumps(main_launches, sort_keys=True))
+    for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")
         records[name]["launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: records[n][k] for k in keys}
-                                  for n in ("frontier_gather", "bell_matmul")]}))
+    print(json.dumps({"kernels": [{k: records[n][k] for k in keys} for n in KERNEL_ORDER]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

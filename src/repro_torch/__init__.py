@@ -2,9 +2,11 @@
 
 Twin of the JAX package ``repro``, module for module: ``graphs`` (the
 paper's three datasets and their layouts), ``core`` (partitioners, DiDiC,
-the traffic replay, metrics, the service facade) and ``kernels`` (the
-hand-written CUDA kernels that replace the JAX package's Pallas kernels).
-It imports PyTorch and numpy, never JAX and never ``repro``.
+the traffic replay, metrics, the service facade), ``kernels`` (the
+hand-written CUDA kernels that replace the JAX package's Pallas kernels),
+and the serving paths of DIN and the dense LM: ``data``, ``models``,
+``configs``, ``serving`` and ``launch``. It imports PyTorch and numpy,
+never JAX and never ``repro``.
 
 Every entry point takes ``device=None``, which means CUDA;
 :func:`resolve_device` raises when CUDA is asked for and absent, so a run

@@ -7,7 +7,7 @@ objects from them. Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -20,9 +20,11 @@ from repro_torch.graphs.structure import BlockEll, Graph, PaddedNeighbors
 __all__ = [
     "block_ell_from_arrays",
     "didic_state_from_arrays",
+    "din_params_from_arrays",
     "graph_from_arrays",
     "oplog_from_arrays",
     "padded_neighbors_from_arrays",
+    "transformer_params_from_arrays",
 ]
 
 
@@ -85,3 +87,35 @@ def block_ell_from_arrays(
         block_mask=np.array(block_mask, dtype=np.float32),
         n_rows=int(n_rows), n_cols=int(n_cols), block_size=int(block_size),
     )
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """numpy (float32, int or ``ml_dtypes`` bfloat16) → tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.as_tensor(np.array(a)).to(device)
+
+
+def _tree(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    return {k: _tree(v, device) if isinstance(v, dict) else _tensor(v, device) for k, v in tree.items()}
+
+
+def transformer_params_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's dense-LM pytree (layers stacked ``[L, ...]``) →
+    the port's parameters, same names, orientation (``y = x @ W``) and
+    types (a bfloat16 leaf stays bfloat16)."""
+    if "moe" in tree["layers"]:
+        raise NotImplementedError("MoE parameters: moe.py is not ported yet (ROADMAP, queue A item 12)")
+    missing = {"embed", "layers", "ln_f", "lm_head"} - set(tree)
+    if missing:
+        raise ValueError(f"not a transformer pytree: missing {sorted(missing)}")
+    return _tree(tree, resolve_device(device))
+
+
+def din_params_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's DIN pytree → the port's parameters."""
+    missing = {"item_embed", "cat_embed", "attn", "mlp"} - set(tree)
+    if missing:
+        raise ValueError(f"not a DIN pytree: missing {sorted(missing)}")
+    return _tree(tree, resolve_device(device))

@@ -157,9 +157,9 @@ def check_cuda_tensor(t, name: str, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-from repro_torch.kernels import bsr_spmm, frontier  # noqa: E402  (registers KERNELS)
+from repro_torch.kernels import bsr_spmm, embedding_bag, flash_attention, frontier  # noqa: E402  (registers KERNELS)
 
 __all__ = [
-    "CudaKernel", "KERNELS", "NVCC_FLAGS", "build_all", "bsr_spmm",
-    "check_cuda_tensor", "frontier", "launch_counts", "reset_launch_counts",
+    "CudaKernel", "KERNELS", "NVCC_FLAGS", "build_all", "bsr_spmm", "check_cuda_tensor",
+    "embedding_bag", "flash_attention", "frontier", "launch_counts", "reset_launch_counts",
 ]

@@ -15,6 +15,8 @@ from repro_torch import kernels
 from repro_torch.graphs import generators
 from repro_torch.graphs.structure import padded_neighbors
 from repro_torch.kernels.bsr_spmm import bell_matmul_ref, make_bell_matmul
+from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_SHAPES
+from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
 from repro_torch.kernels.frontier import make_frontier_gather
 
 
@@ -63,3 +65,94 @@ def test_cuda_gis_replay_matches_scalar_oracle():
     want = execute_ops(g, ops, parts, 4, engine="scalar")
     for field in ("per_op_total", "per_op_global", "per_partition", "per_vertex"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_matches_plain_version():
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_auto, embedding_bag_ref
+
+    dev = _cuda_or_skip()
+    before = kernels.launch_counts()["embedding_bag"]
+    rng = np.random.default_rng(0)
+    for v, d, b, l in EMBEDDING_BAG_SHAPES:
+        table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32), device=dev)
+        idx = torch.as_tensor(rng.integers(0, v, size=(b, l)).astype(np.int32), device=dev)
+        w = rng.random((b, l)).astype(np.float32)
+        w[:, -1] = 0.0
+        w = torch.as_tensor(w, device=dev)
+        torch.testing.assert_close(embedding_bag(table, idx, w), embedding_bag_ref(table, idx, w),
+                                   rtol=1e-6, atol=1e-6)
+    table = torch.as_tensor(rng.normal(size=(50, 8)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 50, size=(4, 6)).astype(np.int32), device=dev)
+    mask = torch.as_tensor((rng.random((4, 6)) > 0.3).astype(np.float32), device=dev)
+    got = embedding_bag_auto(table, idx, mask, mode="mean").cpu()
+    want = embedding_bag_auto(table.cpu(), idx.cpu(), mask.cpu(), mode="mean")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert kernels.launch_counts()["embedding_bag"] == before + len(EMBEDDING_BAG_SHAPES) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_cuda_flash_attention_matches_plain_version(b, hq, hkv, tq, tk, dh, causal, qoff):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.normal(size=(b * hq, tq, dh)).astype(np.float32), device=dev)
+    k = torch.as_tensor(rng.normal(size=(b * hkv, tk, dh)).astype(np.float32), device=dev)
+    v = torch.as_tensor(rng.normal(size=(b * hkv, tk, dh)).astype(np.float32), device=dev)
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, q_offset=qoff)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal, q_offset=qoff),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_and_mha_layout():
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention, mha
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.normal(size=(4, 64, 32)), dtype=torch.bfloat16, device=dev)
+    k = torch.as_tensor(rng.normal(size=(2, 64, 32)), dtype=torch.bfloat16, device=dev)
+    v = torch.as_tensor(rng.normal(size=(2, 64, 32)), dtype=torch.bfloat16, device=dev)
+    got = flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), attention_ref(q.float(), k.float(), v.float()),
+                               rtol=3e-2, atol=3e-2)
+    rng = np.random.default_rng(2)
+    q4 = torch.as_tensor(rng.normal(size=(2, 16, 4, 8)).astype(np.float32), device=dev)
+    k4 = torch.as_tensor(rng.normal(size=(2, 16, 2, 8)).astype(np.float32), device=dev)
+    v4 = torch.as_tensor(rng.normal(size=(2, 16, 2, 8)).astype(np.float32), device=dev)
+    out = mha(q4, k4, v4, causal=True)
+    assert out.shape == (2, 16, 4, 8)
+    # mha on the CPU is held to the JAX package's mha by tests/test_torch_kernels.py.
+    want = mha(q4.cpu(), k4.cpu(), v4.cpu(), causal=True)
+    torch.testing.assert_close(out.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", [
+    (2, 8, 2, 200, 200, 128, True, 0),    # granite's head dim, ragged T, groups of 4
+    (1, 4, 2, 37, 130, 100, True, 93),    # a chunk of queries late in a longer cache
+    (1, 2, 1, 70, 33, 48, False, 0),      # Tq > Tk, non-causal, head dim not a power of 2
+])
+def test_cuda_flash_attention_ragged_and_wide_heads(dtype, tol, b, hq, hkv, tq, tk, dh, causal, qoff):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.as_tensor(rng.normal(size=(n, t, dh)), dtype=dtype, device=dev)
+               for n, t in ((b * hq, tq), (b * hkv, tk), (b * hkv, tk)))
+    got = flash_attention(q, k, v, causal=causal, q_offset=qoff)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal, q_offset=qoff)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)

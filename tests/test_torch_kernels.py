@@ -1,13 +1,16 @@
-"""Port parity for the two kernels of the first slice.
+"""Port parity for the four kernels: frontier gather, block-ELL SpMM,
+EmbeddingBag and flash attention.
 
 On the CPU each wrapper runs its plain PyTorch version, which must match
 the JAX package's Pallas kernel (interpret mode) and its jnp reference:
 min mode bit-exact (a single float32 add and a min are exact in any
 order), sum mode and float32 block-ELL products within 1e-5 (float32 sums
 taken in another order), bfloat16 block-ELL within 3e-2 (bf16 inputs,
-float32 accumulation) — the JAX package's own bars
-(tests/test_traffic_engine.py, tests/test_kernels.py). The hand-written
-kernels themselves are tested on the card by tests/test_torch_cuda.py.
+float32 accumulation), EmbeddingBag within 1e-6 (mean mode within 1e-5 of
+a Python loop), flash attention within 2e-5 in float32 and 3e-2 in
+bfloat16 — the JAX package's own bars (tests/test_traffic_engine.py,
+tests/test_kernels.py). The hand-written kernels themselves are tested on
+the card by tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,11 @@ import torch
 from repro.graphs import generators as jax_generators
 from repro.graphs.structure import padded_neighbors as jax_padded_neighbors
 from repro.kernels.bsr_spmm import bell_matmul as jax_bell_matmul
+from repro.kernels.embedding_bag import embedding_bag as jax_embedding_bag
+from repro.kernels.embedding_bag import embedding_bag_ref as jax_embedding_bag_ref
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+from repro.kernels.flash_attention import mha as jax_mha
 from repro.kernels.frontier import frontier_gather as jax_frontier_gather
 from repro.kernels.frontier import frontier_gather_ref as jax_frontier_gather_ref
 from repro.kernels.frontier import make_frontier_gather as jax_make_frontier_gather
@@ -26,6 +34,10 @@ from repro_torch import convert, kernels
 from repro_torch.graphs import generators
 from repro_torch.graphs.structure import padded_neighbors
 from repro_torch.kernels.bsr_spmm import make_bell_matmul
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_auto
+from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_SHAPES
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention, mha
+from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
 from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather
 
 # The suite runs in several worker processes at once; one intra-op thread
@@ -147,7 +159,12 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(monkeypatch):
     make_frontier_gather(pn, mode="min", device="cpu")(x)
     bell = generators.two_cluster(n_per=8, seed=0).to_block_ell(block_size=16)
     make_bell_matmul(bell, device="cpu")(torch.rand(bell.padded_rows, 3))
-    assert kernels.launch_counts() == {"frontier_gather": 0, "bell_matmul": 0}
+    embedding_bag_auto(torch.rand(10, 4), torch.zeros((2, 3), dtype=torch.int32), mode="mean")
+    q = torch.rand(4, 8, 16)
+    flash_attention(q, q[:2], q[:2])
+    mha(torch.rand(1, 8, 4, 16), torch.rand(1, 8, 2, 16), torch.rand(1, 8, 2, 16))
+    assert kernels.launch_counts() == {
+        "frontier_gather": 0, "bell_matmul": 0, "embedding_bag": 0, "flash_attention": 0}
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -156,3 +173,69 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(monkeypatch):
         make_frontier_gather(pn, mode="min", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_bell_matmul(bell)
+
+
+@pytest.mark.parametrize("v,d,b,l", EMBEDDING_BAG_SHAPES)
+def test_embedding_bag_plain_matches_pallas(v, d, b, l):
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    w = rng.random((b, l)).astype(np.float32)
+    w[:, -1] = 0.0
+    got = embedding_bag(torch.as_tensor(table), torch.as_tensor(idx), torch.as_tensor(w)).numpy()
+    args = (jnp.asarray(table), jnp.asarray(idx), jnp.asarray(w))
+    np.testing.assert_allclose(got, np.asarray(jax_embedding_bag(*args, interpret=True)), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jax_embedding_bag_ref(*args)), rtol=1e-6, atol=1e-6)
+
+
+def test_embedding_bag_mean_mode_matches_loop():
+    rng = np.random.default_rng(1)
+    table = rng.normal(size=(50, 8)).astype(np.float32)
+    idx = rng.integers(0, 50, size=(4, 6)).astype(np.int32)
+    mask = (rng.random((4, 6)) > 0.3).astype(np.float32)
+    mask[2] = 0.0  # an empty bag pools to zeros
+    out = embedding_bag_auto(torch.as_tensor(table), torch.as_tensor(idx), torch.as_tensor(mask),
+                             mode="mean").numpy()
+    for i in range(4):
+        rows = [table[idx[i, j]] for j in range(6) if mask[i, j] > 0]
+        expected = np.mean(rows, axis=0) if rows else np.zeros(8)
+        np.testing.assert_allclose(out[i], expected, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_flash_attention_plain_matches_pallas(b, hq, hkv, tq, tk, dh, causal, qoff):
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(b * hq, tq, dh)).astype(np.float32)
+    k = rng.normal(size=(b * hkv, tk, dh)).astype(np.float32)
+    v = rng.normal(size=(b * hkv, tk, dh)).astype(np.float32)
+    got = flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                          causal=causal, q_offset=qoff).numpy()
+    want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                               q_offset=qoff, block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+    ref = jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, q_offset=qoff)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16_plain_matches_pallas():
+    rng = np.random.default_rng(1)
+    arrs = [rng.normal(size=s) for s in ((4, 64, 32), (2, 64, 32), (2, 64, 32))]
+    got = flash_attention(*(torch.as_tensor(a, dtype=torch.bfloat16) for a in arrs), causal=True)
+    assert got.dtype == torch.bfloat16
+    want = jax_flash_attention(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in arrs), causal=True,
+                               block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, dtype=np.float32),
+                               rtol=3e-2, atol=3e-2)
+    want32 = attention_ref(*(torch.as_tensor(a.astype(np.float32)) for a in arrs), causal=True)
+    np.testing.assert_allclose(got.float().numpy(), want32.numpy(), rtol=3e-2, atol=3e-2)
+
+
+def test_mha_layout_matches_jax_kernel_path():
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(2, 16, 4, 8)).astype(np.float32)
+    k = rng.normal(size=(2, 16, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(2, 16, 2, 8)).astype(np.float32)
+    got = mha(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), causal=True).numpy()
+    assert got.shape == (2, 16, 4, 8)
+    want = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, use_kernel=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
