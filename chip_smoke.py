@@ -10,6 +10,9 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
 1. every kernel against its plain PyTorch version on the card, at test
    shapes and at the shapes the main path gives it, with times
    (``embedding_bag`` at its main-path shape in phase 4, on DIN's batch);
+   ``flash_attention``'s previous (float32-pipe) design is timed beside
+   its tensor-core kernel on the same bfloat16 inputs, and two
+   ``bell_matmul`` launches on DiDiC's matrix must give the same bits;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -21,14 +24,17 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    1,000,000 candidates;
 5. granite-3-8b at its full config and depth (``configs/granite_3_8b.FULL``,
    random bf16 weights): the forward pass and loss over 4,096 tokens
-   through ``flash_attention``, then the continuous-batching server
-   answering 8 requests, twice.
+   through ``flash_attention`` (every launch on its tensor-core route),
+   then the continuous-batching server answering 8 requests, twice.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``)
 and the granite forward call of phase 5 (``flash_attention``). The launch
-counts are set to 0 just before each of them and read just after.
+counts are set to 0 just before each of them and read just after. Each
+kernel's ``ms`` is one call between two CUDA events, its wrapper's host
+work included; its phase line also gives its time a call over 10 calls
+back to back, where the host enqueues the next call while the card runs.
 
 It prints one line per check, then a JSON line with every kernel's
 record, the ``nvidia-smi`` name and power-limit line, and last
@@ -56,6 +62,7 @@ PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 on the tensor cores
 N_OPS = 10_000               # the paper's evaluation-log length (§6.1)
 DIDIC_ITERATIONS = 100       # the paper's initial partitioning (§7.3)
+B2B = 10                     # calls a back-to-back time runs (each kernel's ms is one call)
 KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention")
 
 
@@ -73,10 +80,15 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_cuda(fn, reps: int = 10, warmup: int = 2):
+def time_cuda(fn, reps: int = 10, warmup: int = 2, inner: int = 1):
     """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events, and
     the result of its last run. Host work inside ``fn`` counts: the stream
-    waits for it between the two events."""
+    waits for it between the two events. With ``inner`` > 1 a run is
+    ``inner`` calls back to back, divided by ``inner``: the card then runs
+    the calls one after another while the host enqueues the next, so a
+    call's host work counts only where it is longer than its device time.
+    The kernels' ``ms`` are single calls (``inner`` 1); their back-to-back
+    times are printed beside them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -85,10 +97,11 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = fn()
+        for _ in range(inner):
+            out = fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times), out
 
 
@@ -182,16 +195,18 @@ def phase1_frontier(dev, gis_engine, records):
     check(torch.equal(got, want), f"frontier_gather min on the GIS full layout [{v}x{d}], C=128: bit-exact")
     err = float((got - want).nan_to_num(0.0, 0.0, 0.0).abs().max())
     ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"))[0]
+    b2b_ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"), inner=B2B)[0]
     plain_ms = time_cuda(lambda: frontier_gather_ref(g, nbr, w_inf, mode="min"), reps=5)[0]
     n_bytes = w_pad * 128 * 4 + v * d * 8 + v * 128 * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * v * d * 128)
     say(f"phase 1: frontier_gather min [{v}x{d}] C=128: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), library: none (no single PyTorch call computes a min-plus gather)")
+        f"bound {b_ms:.4f} ms ({b_by}), library: none (no single PyTorch call computes a min-plus gather); "
+        f"{B2B} calls back to back: kernel {b2b_ms:.4f} ms a call")
     records["frontier_gather"] = {
         "name": "frontier_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/frontier_gather.cu",
         "replaces": "src/repro/kernels/frontier/kernel.py:58",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
@@ -243,24 +258,30 @@ def phase1_bell(dev, records):
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
           f"bell_matmul on DiDiC's GIS 0.01 matrix ({bell.n_block_rows}x{bell.max_nnzb} slots): within 1e-5")
+    check(torch.equal(got, bell_matmul(blocks, cols, mask, x)),
+          "bell_matmul on DiDiC's matrix: two launches give the same bits")
     lib = _bsr_library(bell, dev)
     lib_out = lib @ x
     check(torch.allclose(lib_out, want, rtol=1e-4, atol=1e-4), "BSR library call agrees (yardstick)")
     ms = time_cuda(lambda: bell_matmul(blocks, cols, mask, x))[0]
     plain_ms = time_cuda(lambda: bell_matmul_ref(blocks, cols, mask, x), reps=5)[0]
     library_ms = time_cuda(lambda: lib @ x)[0]
+    b2b_ms = time_cuda(lambda: bell_matmul(blocks, cols, mask, x), inner=B2B)[0]
+    library_b2b_ms = time_cuda(lambda: lib @ x, inner=B2B)[0]
     nnzb = int(bell.block_mask.sum())
     bs = bell.block_size
     n_bytes = nnzb * bs * bs * 4 + bell.block_cols.size * 8 + 2 * bell.padded_rows * 4 * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * nnzb * bs * bs * 4)
     say(f"phase 1: bell_matmul GIS 0.01 ({nnzb} stored blocks of {bell.n_block_rows}x{bell.max_nnzb}), F=4: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch BSR @ dense {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}); kernel at {100 * b_ms / ms:.1f} % of the bound, "
+        f"{n_bytes / ms / 1e6:.1f} GB/s; {B2B} calls back to back: kernel {b2b_ms:.4f} ms a call "
+        f"({100 * b_ms / b2b_ms:.1f} % of the bound), torch BSR @ dense {library_b2b_ms:.4f} ms")
     records["bell_matmul"] = {
         "name": "bell_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/bell_matmul.cu",
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:52",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     }
 
@@ -411,6 +432,7 @@ def phase1_flash(dev, records):
     2e-5, bfloat16 within 3e-2) and at granite-3-8b's prefill shape, where
     the bar is set by bfloat16 rounding of the output (``bf16_gaps``)."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import _ffma_bf16_uncounted
     from repro_torch.kernels.flash_attention.ref import TEST_SHAPES
 
     rng = np.random.default_rng(0)
@@ -447,22 +469,34 @@ def phase1_flash(dev, records):
     lib_out = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)[0]
     check(torch.allclose(lib_out.float(), want.float(), rtol=3e-2, atol=3e-2),
           "scaled_dot_product_attention agrees (yardstick)")
+    # The previous design (the float32-pipe kernel, kept for float32) on the
+    # same bfloat16 inputs, launched outside the counts.
+    old = _ffma_bf16_uncounted(q, k, v)
+    old_close, old_err, _ = bf16_gaps(old, want)
+    check(old_close, f"the previous (ffma) design at granite's prefill shape: within two bf16 steps "
+                     f"(max abs {old_err:.3g})")
     ms = time_cuda(lambda: flash_attention(q, k, v))[0]
+    old_ms = time_cuda(lambda: _ffma_bf16_uncounted(q, k, v))[0]
     plain_ms = time_cuda(lambda: attention_ref(q, k, v), reps=5)[0]
     library_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True))[0]
+    b2b_ms = time_cuda(lambda: flash_attention(q, k, v), inner=B2B)[0]
+    library_b2b_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True), inner=B2B)[0]
     pairs = t * (t + 1) // 2                  # causal (query, key) pairs this call computes
     n_flops = 4.0 * hq * pairs * dh           # q.k and p.v, two operations a multiply-add
     n_bytes = (2 * hq + 2 * hkv) * t * dh * 2  # q, k, v read once, o written once, bf16
     b_ms, b_by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
-    say(f"phase 1: flash_attention bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+    say(f"phase 1: flash_attention bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernel (wgmma) {ms:.4f} ms, "
+        f"previous design (ffma) {old_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s); "
-        f"kernel {n_flops / ms / 1e9:.1f} TFLOP/s")
+        f"kernel {n_flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % of the bound, "
+        f"{old_ms / ms:.2f}x the previous design; {B2B} calls back to back: kernel {b2b_ms:.4f} ms a call "
+        f"({n_flops / b2b_ms / 1e9:.1f} TFLOP/s), scaled_dot_product_attention {library_b2b_ms:.4f} ms")
     records["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     }
 
@@ -497,18 +531,20 @@ def _embedding_bag_checks(dev, params, batch, records):
     check(torch.allclose(lib(idx64, table, per_sample_weights=w, mode="sum"), want, rtol=1e-5, atol=1e-5),
           "torch.nn.functional.embedding_bag agrees (yardstick)")
     ms = time_cuda(lambda: embedding_bag(table, idx, w))[0]
+    b2b_ms = time_cuda(lambda: embedding_bag(table, idx, w), inner=B2B)[0]
     plain_ms = time_cuda(lambda: embedding_bag_ref(table, idx, w), reps=5)[0]
     library_ms = time_cuda(lambda: lib(idx64, table, per_sample_weights=w, mode="sum"))[0]
     n_bytes = v * d * 4 + 2 * b * l * 4 + b * d * 4  # table, idx, w read once; out written once
     b_ms, b_by = bound_ms(n_bytes, 2.0 * b * l * d)
     say(f"phase 4: embedding_bag [{v}x{d}] table, {b}x{l} bags: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch embedding_bag {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB; "
-        f"the gathered rows are {b * l * d * 4 / 1e9:.3f} GB)")
+        f"the gathered rows are {b * l * d * 4 / 1e9:.3f} GB); {B2B} calls back to back: kernel "
+        f"{b2b_ms:.4f} ms a call")
     records["embedding_bag"] = {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:39",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     }
 
@@ -616,9 +652,12 @@ def phase5_lm(dev, main_launches):
         counts = kernels.launch_counts()
         _add_counts(main_launches, counts)
         fwd_peak = torch.cuda.max_memory_allocated()
+        routes = dict(kernels.KERNELS["flash_attention"].route_launches)
         check(counts["flash_attention"] == cfg.n_layers,
               f"granite forward over 4096 tokens launched flash_attention {counts['flash_attention']} times "
               f"(one a layer)")
+        check(routes == {"wgmma": cfg.n_layers},
+              f"every flash_attention launch of the granite forward took the tensor-core route ({routes})")
         check(tuple(logits.shape) == (1, 4096, cfg.vocab) and bool(torch.isfinite(logits).all()),
               f"granite logits [1x4096x{cfg.vocab}] are finite")
         del logits

@@ -62,6 +62,7 @@ class CudaKernel:
         self.source = source
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.route_launches: Dict[str, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         KERNELS[name] = self
@@ -112,14 +113,21 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, *args) -> None:
-        """Call the C entry point; raise on a CUDA error, else count it."""
+    def call(self, *args) -> None:
+        """Call the C entry point; raise on a CUDA error. Counts nothing."""
         lib = self.lib
         rc = getattr(lib, f"{self.name}_launch")(*args)
         if rc != 0:
             msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
+
+    def launch(self, *args, route: Optional[str] = None) -> None:
+        """Call the C entry point; raise on a CUDA error, else count it (and
+        its ``route``, for a kernel with more than one design)."""
+        self.call(*args)
         self.launches += 1
+        if route is not None:
+            self.route_launches[route] = self.route_launches.get(route, 0) + 1
 
 
 def build_all() -> List[str]:
@@ -143,6 +151,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+        kernel.route_launches = {}
 
 
 def check_cuda_tensor(t, name: str, dtypes, ndim: int, device) -> None:

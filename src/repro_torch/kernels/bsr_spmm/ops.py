@@ -2,7 +2,10 @@
 
 :func:`bell_matmul` dispatches by the device of ``x``: a CPU tensor goes to
 the plain version (:mod:`.ref`), a CUDA tensor to the hand-written kernel
-``csrc/bell_matmul.cu``, which raises if it fails to build or launch.
+``csrc/bell_matmul.cu``, which raises if it fails to build or launch. The
+kernel streams block rows with 16-byte copies, so on the card a block row
+(``bs`` values) must be a multiple of 16 bytes: ``bs % 4 == 0`` in float32,
+``bs % 8 == 0`` in bfloat16.
 :func:`make_bell_matmul` closes over a host-side
 :class:`~repro_torch.graphs.structure.BlockEll` and returns ``X -> A @ X``.
 """
@@ -51,6 +54,9 @@ def bell_matmul(
         raise ValueError("block_cols and block_mask must be [n_block_rows, max_nnz]")
     if x.shape[0] != nbr * bs:
         raise ValueError(f"x has {x.shape[0]} rows, the layout {nbr * bs}")
+    if (bs * blocks.element_size()) % 16 or blocks.data_ptr() % 16:
+        raise ValueError(f"the kernel copies block rows in 16-byte units: block size {bs} "
+                         f"({blocks.dtype}) and the blocks' address must allow it")
     f = x.shape[1]
     out = torch.empty((nbr * bs, f), dtype=x.dtype, device=x.device)
     KERNEL.launch(

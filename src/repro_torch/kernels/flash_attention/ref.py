@@ -9,6 +9,8 @@ softmax is taken over the whole row, in float32; the result has q's type.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # (B, Hq, Hkv, Tq, Tk, Dh, causal, q_offset) of the JAX package's kernel
@@ -30,13 +32,16 @@ def attention_ref(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """``scale`` multiplies q·k; ``None`` means ``Dh**-0.5``."""
     bhq, tq, dh = q.shape
     bhkv, tk, _ = k.shape
     group = bhq // bhkv
     kr = k.repeat_interleave(group, dim=0)
     vr = v.repeat_interleave(group, dim=0)
-    scale = dh ** -0.5
+    if scale is None:
+        scale = dh ** -0.5
     s = torch.einsum("bqd,bkd->bqk", q.float(), kr.float()) * scale
     if causal:
         qpos = torch.arange(tq, device=q.device)[:, None] + q_offset

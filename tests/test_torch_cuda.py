@@ -156,3 +156,89 @@ def test_cuda_flash_attention_ragged_and_wide_heads(dtype, tol, b, hq, hkv, tq, 
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal, q_offset=qoff)
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+def _bf16_attention_inputs(dev, seed, b, hq, hkv, tq, tk, dh):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=(n, t, dh)), dtype=torch.bfloat16, device=dev)
+            for n, t in ((b * hq, tq), (b * hkv, tk), (b * hkv, tk)))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_wgmma_ragged_offset_groups():
+    """The tensor-core kernel at granite's head dim with a ragged Tq (200),
+    q_offset 93 and groups of 4, within two bfloat16 steps (atol 4e-3 + rtol
+    1.6e-2) of float32 attention rounded to bfloat16."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    dev = _cuda_or_skip()
+    b, hq, hkv, tq, qoff, dh = 2, 8, 2, 200, 93, 128
+    q, k, v = _bf16_attention_inputs(dev, 5, b, hq, hkv, tq, tq + qoff, dh)
+    got = flash_attention(q, k, v, causal=True, q_offset=qoff)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True, q_offset=qoff).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=4e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_route_counts():
+    """bfloat16 calls (padded head dims too) count on the wgmma route, float32
+    calls on the ffma route, each also once on the kernel's count; the
+    uncounted timing entry counts nothing."""
+    from repro_torch.kernels.flash_attention import KERNEL, flash_attention
+    from repro_torch.kernels.flash_attention.ops import _ffma_bf16_uncounted
+
+    dev = _cuda_or_skip()
+    before, routes = KERNEL.launches, dict(KERNEL.route_launches)
+    for dh in (128, 48):
+        flash_attention(*_bf16_attention_inputs(dev, 6, 1, 4, 2, 64, 64, dh))
+    q, k, v = (t.float() for t in _bf16_attention_inputs(dev, 7, 1, 4, 2, 64, 64, 64))
+    flash_attention(q, k, v)
+    _ffma_bf16_uncounted(*_bf16_attention_inputs(dev, 8, 1, 4, 2, 64, 64, 128))
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 3
+    assert KERNEL.route_launches.get("wgmma", 0) == routes.get("wgmma", 0) + 2
+    assert KERNEL.route_launches.get("ffma", 0) == routes.get("ffma", 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("bs", [16, 32, 128])
+@pytest.mark.parametrize("f", [2, 4, 20])
+def test_cuda_bell_matmul_bit_repeatable(dtype, tol, bs, f):
+    """Two launches on the same inputs give the same bits (each output is
+    summed in one fixed order, never atomically), within the plain version's
+    tolerance."""
+    from repro_torch.kernels.bsr_spmm import bell_matmul
+
+    dev = _cuda_or_skip()
+    bell = generators.two_cluster(n_per=70, p_in=0.2, p_out=0.02, seed=1).to_block_ell(block_size=bs)
+    blocks = torch.as_tensor(bell.blocks, device=dev).to(dtype)
+    cols = torch.as_tensor(bell.block_cols, device=dev)
+    mask = torch.as_tensor(bell.block_mask, device=dev).to(torch.int32)
+    x = torch.as_tensor(np.random.default_rng(9).normal(size=(bell.padded_rows, f)), dtype=dtype, device=dev)
+    first = bell_matmul(blocks, cols, mask, x)
+    second = bell_matmul(blocks, cols, mask, x)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), bell_matmul_ref(blocks, cols, mask, x).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bs", [(torch.float32, 2), (torch.float32, 6), (torch.bfloat16, 4)])
+def test_cuda_bell_matmul_rejects_short_block_rows(dtype, bs):
+    """The kernel copies block rows in 16-byte units: on the card a block
+    size whose row is not a multiple of 16 bytes raises (no silent switch to
+    the plain version), while the same layout on the CPU runs the plain
+    version."""
+    from repro_torch.kernels.bsr_spmm import bell_matmul
+
+    dev = _cuda_or_skip()
+    bell = generators.two_cluster(n_per=10, p_in=0.3, p_out=0.05, seed=2).to_block_ell(block_size=bs)
+    host = (torch.as_tensor(bell.blocks).to(dtype), torch.as_tensor(bell.block_cols),
+            torch.as_tensor(bell.block_mask).to(torch.int32),
+            torch.as_tensor(np.random.default_rng(4).normal(size=(bell.padded_rows, 4)), dtype=dtype))
+    assert bell_matmul(*host).shape == (bell.padded_rows, 4)
+    before = kernels.KERNELS["bell_matmul"].launches
+    with pytest.raises(ValueError, match="16-byte"):
+        bell_matmul(*(t.to(dev) for t in host))
+    assert kernels.KERNELS["bell_matmul"].launches == before

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
-``repro.`` module; only these parity tests import both packages.
+``repro_torch``, ``chip_smoke.py`` and ``kernel_ab.py`` must import neither
+``jax`` nor any ``repro.`` module; only these parity tests import both
+packages.
 """
 
 import ast
@@ -13,7 +14,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                    ROOT / "kernel_ab.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -37,6 +37,7 @@ from repro_torch.kernels.bsr_spmm import make_bell_matmul
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_auto
 from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_SHAPES
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, mha
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
 from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather
 
@@ -239,3 +240,48 @@ def test_mha_layout_matches_jax_kernel_path():
     assert got.shape == (2, 16, 4, 8)
     want = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, use_kernel=True)
     np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,dh,route,dh_kernel", [
+    (torch.bfloat16, 128, "wgmma", 128),
+    (torch.bfloat16, 64, "wgmma", 64),
+    (torch.bfloat16, 100, "wgmma", 128),
+    (torch.bfloat16, 48, "wgmma", 64),
+    (torch.bfloat16, 1, "wgmma", 64),
+    (torch.float32, 128, "ffma", 128),
+    (torch.float32, 48, "ffma", 48),
+])
+def test_flash_attention_route_by_dtype_and_head_dim(dtype, dh, route, dh_kernel):
+    # bfloat16 goes to the tensor cores at a head dim of whole 64-column
+    # boxes; float32 stays on the float32 pipe at its own head dim.
+    assert flash_ops.plan(dtype, dh) == (route, dh_kernel)
+
+
+@pytest.mark.parametrize("dh", [48, 100])
+def test_flash_attention_head_dim_padding_matches_pallas(monkeypatch, dh):
+    """The CUDA branch (route, zero-padding of the head dim, slicing) on CPU
+    tensors, with the launch replaced by the plain version at the padded head
+    dim and the scale the kernel is given; held to the JAX kernel in
+    interpret mode and to float32 attention, bfloat16's 3e-2."""
+    calls = []
+
+    def plain_launch(route, q, k, v, out, *, causal, q_offset, scale):
+        calls.append((route, q.shape[-1], scale))
+        out.copy_(attention_ref(q.float(), k.float(), v.float(), causal=causal, q_offset=q_offset,
+                                scale=scale).to(out.dtype))
+
+    monkeypatch.setattr(flash_ops, "_launch", plain_launch)
+    rng = np.random.default_rng(4)
+    hq, hkv, tq, tk, qoff = 4, 2, 40, 72, 32
+    arrs = [rng.normal(size=(n, t, dh)) for n, t in ((hq, tq), (hkv, tk), (hkv, tk))]
+    q, k, v = (torch.as_tensor(a, dtype=torch.bfloat16) for a in arrs)
+    got = flash_ops._kernel_call(q, k, v, causal=True, q_offset=qoff)
+    assert calls == [("wgmma", 64 if dh <= 64 else 128, dh ** -0.5)]
+    assert got.shape == q.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    want = jax_flash_attention(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in arrs), causal=True,
+                               q_offset=qoff, block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, dtype=np.float32),
+                               rtol=3e-2, atol=3e-2)
+    want32 = attention_ref(*(torch.as_tensor(a.astype(np.float32)) for a in arrs), causal=True,
+                           q_offset=qoff)
+    np.testing.assert_allclose(got.float().numpy(), want32.numpy(), rtol=3e-2, atol=3e-2)
