@@ -9,10 +9,14 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    the kernel build time;
 1. every kernel against its plain PyTorch version on the card, at test
    shapes and at the shapes the main path gives it, with times
-   (``embedding_bag`` at its main-path shape in phase 4, on DIN's batch);
-   ``flash_attention``'s previous (float32-pipe) design is timed beside
-   its tensor-core kernel on the same bfloat16 inputs, and two
-   ``bell_matmul`` launches on DiDiC's matrix must give the same bits;
+   (``embedding_bag`` at its main-path shape in phase 4, on DIN's batch,
+   where two launches must give the same bits); ``frontier_gather``'s min
+   with NaN and -inf in x against the plain version's NaN mask and
+   values, and on the GIS whole-graph layout with the engine's row
+   schedule, without it, and with the spill tail; ``flash_attention``'s
+   previous (float32-pipe) design is timed beside its tensor-core kernel
+   on the same bfloat16 inputs, and two ``bell_matmul`` launches on
+   DiDiC's matrix must give the same bits;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -152,30 +156,33 @@ def _random_layout(rng, n, e, cap):
     return padded_neighbors(s, r, w, n, cap=cap)
 
 
+def _nan_equal(a, b) -> bool:
+    """The same NaN mask, and equal values everywhere else (inf included)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
+
+
 def phase1_frontier(dev, gis_engine, records):
-    from repro_torch.kernels.frontier import frontier_gather, frontier_gather_ref, make_frontier_gather
-    from repro_torch.kernels.frontier.ops import spill_epilogue
+    from repro_torch.kernels.frontier import (
+        frontier_gather, frontier_gather_ref, frontier_relax, make_frontier_gather, spill_tail,
+    )
 
     rng = np.random.default_rng(0)
     for cap in (None, 3):
         pn = _random_layout(rng, 2000, 16000, cap)
         if cap is not None:
             check(pn.n_spill > 0, f"frontier_gather capped layout spills ({pn.n_spill} edges)")
+        nbr = torch.as_tensor(pn.nbr, device=dev)
+        tail = spill_tail(pn.spill_s, pn.spill_r, pn.spill_w, 2000, dev)
         for c in (7, 128, 300):
             x = torch.as_tensor(rng.normal(size=(2000, c)).astype(np.float32), device=dev)
             x[rng.random(2000) < 0.1] = float("inf")
             for mode in ("min", "sum"):
                 got = make_frontier_gather(pn, mode=mode, device=dev)(x)
-                nbr = torch.as_tensor(pn.nbr, device=dev)
                 w = (np.where(pn.mask > 0, pn.w, np.float32(np.inf)) if mode == "min"
                      else pn.w * pn.mask)
                 w = torch.as_tensor(w.astype(np.float32), device=dev)
-                want = frontier_gather_ref(x, nbr, w, mode=mode)
-                want = spill_epilogue(
-                    want, x, torch.as_tensor(pn.spill_s, device=dev).long(),
-                    torch.as_tensor(pn.spill_r, device=dev).long(),
-                    torch.as_tensor(pn.spill_w, device=dev), mode,
-                )
+                want = frontier_gather_ref(x, nbr, w, mode=mode, tail=tail)
                 if mode == "min":
                     check(torch.equal(got, want), f"frontier_gather min cap={cap} C={c}: bit-exact")
                 else:
@@ -184,30 +191,78 @@ def phase1_frontier(dev, gis_engine, records):
                         got[fin], want[fin], rtol=1e-5, atol=1e-5),
                         f"frontier_gather sum cap={cap} C={c}: within 1e-5")
 
-    # The main path's shape: the whole-graph GIS layout at scale 1.0, C=128.
-    w_pad, nbr, w_inf, *_ = gis_engine.ensure_full_layout()
+    # NaN and -inf in x, row 0 included (every padded slot reads it with
+    # weight +inf, and -inf + +inf is NaN): min propagates NaN as
+    # torch.minimum does, over the padded slots and over the spill tail;
+    # the plain version's scatter-min on the card is held to the CPU's too.
+    for cap in (None, 3):
+        pn = _random_layout(rng, 2000, 16000, cap)
+        nbr = torch.as_tensor(pn.nbr, device=dev)
+        w = torch.as_tensor(np.where(pn.mask > 0, pn.w, np.float32(np.inf)), device=dev)
+        tail = spill_tail(pn.spill_s, pn.spill_r, pn.spill_w, 2000, dev)
+        cpu_tail = spill_tail(pn.spill_s, pn.spill_r, pn.spill_w, 2000, "cpu")
+        for c in (7, 128):
+            xh = rng.normal(size=(2000, c)).astype(np.float32)
+            xh[0, :3] = [np.nan, -np.inf, np.inf]
+            xh[rng.random((2000, c)) < 0.02] = np.nan
+            xh[rng.random((2000, c)) < 0.02] = -np.inf
+            x = torch.as_tensor(xh, device=dev)
+            got = frontier_gather(x, nbr, w, mode="min", tail=tail)
+            on_cpu = frontier_gather_ref(x.cpu(), nbr.cpu(), w.cpu(), mode="min", tail=cpu_tail)
+            check(bool(torch.isnan(got).any()) and _nan_equal(got.cpu(), on_cpu),
+                  f"frontier_gather min cap={cap} C={c} with NaN and -inf in x (row 0 too): the plain "
+                  f"version's NaN mask and values")
+            check(_nan_equal(frontier_gather_ref(x, nbr, w, mode="min", tail=tail).cpu(), on_cpu),
+                  f"the plain version on the card (torch.minimum, scatter_reduce amin) cap={cap} C={c}: "
+                  f"the CPU's NaN mask and values")
+
+    # The main path's shape: the whole-graph GIS layout at scale 1.0, C=128,
+    # with the engine's row schedule (the replay's redo chunks use it) and
+    # without one, without its spill tail (the function earlier designs were
+    # timed on) and with it (the replay's call).
+    w_pad, nbr, w_inf, tail, *_ = gis_engine.ensure_full_layout()
+    order = gis_engine.full_row_order()
+    check(order is not None and torch.equal(torch.sort(order).values,
+                                            torch.arange(w_pad, dtype=torch.int32, device=dev)),
+          f"the engine's row schedule of the GIS full layout is a permutation of its {w_pad} rows")
     v, d = nbr.shape
+    n_tail = int(tail.src.shape[0])
     g = torch.rand((w_pad, 128), generator=torch.Generator(device=dev).manual_seed(1),
                    device=dev) * 5.0
     g[torch.rand((w_pad, 128), device=dev) < 0.5] = float("inf")
-    got = frontier_gather(g, nbr, w_inf, mode="min")
+    got = frontier_gather(g, nbr, w_inf, mode="min", order=order)
     want = frontier_gather_ref(g, nbr, w_inf, mode="min")
-    check(torch.equal(got, want), f"frontier_gather min on the GIS full layout [{v}x{d}], C=128: bit-exact")
+    check(torch.equal(got, want), f"frontier_gather min on the GIS full layout [{v}x{d}], C=128, "
+                                  f"with the engine's row schedule: bit-exact")
+    check(torch.equal(frontier_gather(g, nbr, w_inf, mode="min"), want),
+          "frontier_gather min on the GIS full layout without a row schedule: bit-exact")
+    check(torch.equal(frontier_relax(g, nbr, w_inf, tail, order),
+                      frontier_gather_ref(g, nbr, w_inf, mode="min", tail=tail)),
+          f"frontier_relax on the GIS full layout with its spill tail ({n_tail} edges): bit-exact")
     err = float((got - want).nan_to_num(0.0, 0.0, 0.0).abs().max())
-    ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"))[0]
-    b2b_ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"), inner=B2B)[0]
+    ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min", order=order))[0]
+    b2b_ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min", order=order), inner=B2B)[0]
+    unordered_ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"))[0]
+    unordered_b2b_ms = time_cuda(lambda: frontier_gather(g, nbr, w_inf, mode="min"), inner=B2B)[0]
+    relax_ms = time_cuda(lambda: frontier_relax(g, nbr, w_inf, tail, order))[0]
+    relax_b2b_ms = time_cuda(lambda: frontier_relax(g, nbr, w_inf, tail, order), inner=B2B)[0]
     plain_ms = time_cuda(lambda: frontier_gather_ref(g, nbr, w_inf, mode="min"), reps=5)[0]
     n_bytes = w_pad * 128 * 4 + v * d * 8 + v * 128 * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * v * d * 128)
-    say(f"phase 1: frontier_gather min [{v}x{d}] C=128: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    say(f"phase 1: frontier_gather min [{v}x{d}] C=128: kernel with the row schedule {ms:.4f} ms "
+        f"({100 * b_ms / ms:.1f} % of the bound), without {unordered_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), library: none (no single PyTorch call computes a min-plus gather); "
-        f"{B2B} calls back to back: kernel {b2b_ms:.4f} ms a call")
+        f"with the spill tail ({n_tail} edges, the replay's call) {relax_ms:.4f} ms; {B2B} calls back to "
+        f"back: kernel with the schedule {b2b_ms:.4f} ms a call ({100 * b_ms / b2b_ms:.1f} % of the bound), "
+        f"without {unordered_b2b_ms:.4f} ms, with the spill tail {relax_b2b_ms:.4f} ms")
     records["frontier_gather"] = {
         "name": "frontier_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/frontier_gather.cu",
         "replaces": "src/repro/kernels/frontier/kernel.py:58",
         "max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "unordered_ms": unordered_ms, "unordered_b2b_ms": unordered_b2b_ms,
+        "with_tail_ms": relax_ms, "with_tail_b2b_ms": relax_b2b_ms,
     }
 
 
@@ -526,6 +581,8 @@ def _embedding_bag_checks(dev, params, batch, records):
     v, d = table.shape
     check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
           f"embedding_bag mean over DIN's item table [{v}x{d}], {b} bags of {l}: within 1e-6 (max {err:.3g})")
+    check(torch.equal(embedding_bag(table, idx, w), embedding_bag(table, idx, w)),
+          "embedding_bag at DIN's shape: two launches give the same bits")
     idx64 = idx.long()
     lib = torch.nn.functional.embedding_bag
     check(torch.allclose(lib(idx64, table, per_sample_weights=w, mode="sum"), want, rtol=1e-5, atol=1e-5),
@@ -536,10 +593,11 @@ def _embedding_bag_checks(dev, params, batch, records):
     library_ms = time_cuda(lambda: lib(idx64, table, per_sample_weights=w, mode="sum"))[0]
     n_bytes = v * d * 4 + 2 * b * l * 4 + b * d * 4  # table, idx, w read once; out written once
     b_ms, b_by = bound_ms(n_bytes, 2.0 * b * l * d)
+    gathered = b * l * d * 4
     say(f"phase 4: embedding_bag [{v}x{d}] table, {b}x{l} bags: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch embedding_bag {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB; "
-        f"the gathered rows are {b * l * d * 4 / 1e9:.3f} GB); {B2B} calls back to back: kernel "
-        f"{b2b_ms:.4f} ms a call")
+        f"the gathered rows are {gathered / 1e9:.3f} GB, gathered at {gathered / ms / 1e6:.1f} GB/s); "
+        f"{B2B} calls back to back: kernel {b2b_ms:.4f} ms a call ({gathered / b2b_ms / 1e6:.1f} GB/s)")
     records["embedding_bag"] = {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",

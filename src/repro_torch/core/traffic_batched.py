@@ -33,7 +33,13 @@ backstop. Ops are sorted by (coarse src cell, straight-line distance) and
 each chunk runs on a *window* (the chunk's bounding box plus a margin); a
 result is accepted only if the op's A* ellipse provably fits the window
 (:meth:`BatchedTrafficEngine.window_accept`, host float64), and rejected
-ops are solved again on the whole graph.
+ops are solved again on the whole graph. Vertex ids are random in space, so
+a large window also gets a *row schedule* for the kernel: its rows along a
+Hilbert curve over the vertices' coordinates
+(:meth:`BatchedTrafficEngine.row_order`), so that rows relaxed together
+read neighbour rows that are still in the card's L2. The schedule changes
+which rows run together, never a result, and rows keep their positions
+(``max_expansions`` breaks ties by row position).
 
 The accounting set is the deterministic A* expansion set of
 :mod:`repro_torch.core.traffic`, decided from final float32 distances. The
@@ -53,7 +59,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import traffic as _t
 from repro_torch.graphs.structure import Graph, padded_neighbors
-from repro_torch.kernels.frontier import frontier_relax
+from repro_torch.kernels.frontier import frontier_relax, spill_tail
 
 __all__ = ["BatchedTrafficEngine", "execute_ops_batched", "get_engine"]
 
@@ -71,10 +77,36 @@ def _capped_gather_layout(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Relaxation form of :func:`padded_neighbors` with a slot cap:
     (nbr, w_inf (+inf padded — the min-plus identity), spill_s, spill_r,
-    spill_w)."""
+    spill_w), the spill sorted by receiver."""
     pn = padded_neighbors(s_loc, r_loc, w, n_rows, cap=cap)
     w_inf = np.where(pn.mask > 0, pn.w, np.float32(np.inf))
     return pn.nbr, w_inf, pn.spill_s, pn.spill_r, pn.spill_w
+
+
+def _hilbert_rank(lon: np.ndarray, lat: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Each vertex's position (0..N-1, ties by id) along a Hilbert curve over
+    a ``2^bits`` grid spanning the coordinates' bounding box."""
+    n = 1 << bits
+
+    def cell(a):
+        lo, span = float(a.min()), max(float(a.max() - a.min()), 1e-12)
+        return np.clip(((a.astype(np.float64) - lo) / span * n).astype(np.int64), 0, n - 1)
+
+    x, y = cell(lon), cell(lat)
+    key = np.zeros(x.shape[0], dtype=np.int64)
+    s = n // 2
+    while s > 0:  # xy2d, one bit of both coordinates a step
+        rx = (x & s) > 0
+        ry = (y & s) > 0
+        key += s * s * ((3 * rx.astype(np.int64)) ^ ry.astype(np.int64))
+        flip = ~ry & rx
+        x = np.where(flip, n - 1 - x, x)
+        y = np.where(flip, n - 1 - y, y)
+        x, y = np.where(ry, x, y), np.where(ry, y, x)
+        s //= 2
+    rank = np.empty(x.shape[0], dtype=np.int64)
+    rank[np.argsort(key, kind="stable")] = np.arange(x.shape[0])
+    return rank
 
 
 def _device_h(lon_w, lat_w, dst_lon, dst_lat) -> torch.Tensor:
@@ -100,9 +132,8 @@ def _sssp_solve(
     ids_w,         # [W] int32 global vertex ids (ascending; _BIG_ID padding)
     nbr,           # [W, D] int32 local in-neighbour ids (D capped)
     w_inf,         # [W, D] float32 edge weights (+inf where padded)
-    spill_s,       # [S] int64 local senders of over-cap edges (0 padded)
-    spill_r,       # [S] int64 local receivers of over-cap edges
-    spill_w,       # [S] float32 weights (+inf where padded)
+    tail,          # SpillTail of the over-cap edges by receiver, or None
+    order,         # [W] int32 row schedule of the kernel, or None
     h,             # [W, C] float32 Euclidean heuristic to each op's dst
     delta: float,  # bucket width (ignored unless finite_delta)
     max_expansions: int,
@@ -136,7 +167,7 @@ def _sssp_solve(
             # Frontier Bellman–Ford: every vertex re-offers its current
             # value; pending work is exactly "improved last round".
             gm = torch.where(done[None, :], inf, g)
-        relaxed = frontier_relax(gm, nbr, w_inf, spill_s, spill_r, spill_w)
+        relaxed = frontier_relax(gm, nbr, w_inf, tail, order)
         improved = relaxed < g
         g = torch.minimum(g, relaxed)
         if finite_delta:
@@ -181,6 +212,17 @@ def _sssp_solve(
 
 class BatchedTrafficEngine:
     """One engine per (graph, pattern, device); see module docstring."""
+
+    #: Windows of at least this many rows get a Hilbert row schedule
+    #: (:meth:`row_order`); smaller ones run their rows in index order. On
+    #: an H100 (10,000-op GIS replay, `python -m repro_torch.profile_replay
+    #: --order-min-rows 0`) the schedule cut the kernel's device time by
+    #: 6-8 % at 98,304-131,072 rows, 23 % at 262,144 and 24-34 % from
+    #: 393,216 rows up, while building it costs ~0.4 ms of device and
+    #: ~0.45 ms of host time a window: it pays from 393,216 rows (x of 201
+    #: MB at C = 128, four times the L2), and for the whole-graph layout,
+    #: whose schedule is built once.
+    order_min_rows = 393_216
 
     def __init__(
         self,
@@ -239,11 +281,13 @@ class BatchedTrafficEngine:
                 else np.float32(max(self.mean_w * delta_scale, 1e-6))
             )
             # The cap only splits edges between the padded gather and the
-            # exact COO spill, so results never depend on it.
+            # exact spill tail, so results never depend on it.
             pos_deg = self.deg[self.deg > 0]
             self.nbr_cap = max(4, int(np.percentile(pos_deg, 90)) if pos_deg.size else 4)
             self._glob2loc = np.full(self.n_nodes, -1, dtype=np.int64)
+            self._rank_t = torch.as_tensor(_hilbert_rank(self._lon, self._lat), device=dev)
             self._full_layout = None
+            self._full_order = None
             self._device_h_ok = self._check_device_h()
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -364,10 +408,30 @@ class BatchedTrafficEngine:
         )
         return np.nonzero(mask)[0], (lo_x, hi_x, lo_y, hi_y)
 
+    def row_order(self, win_t: torch.Tensor, w_pad: int) -> Optional[torch.Tensor]:
+        """The kernel's row schedule for a window: its ``W`` real rows (global
+        ids ``win_t``, ascending) in Hilbert order, then the padding rows;
+        ``None`` below :attr:`order_min_rows` rows, where the window's
+        values fit the L2 anyway."""
+        if w_pad < self.order_min_rows:
+            return None
+        order = torch.argsort(self._rank_t[win_t]).to(torch.int32)
+        pad = torch.arange(win_t.shape[0], w_pad, dtype=torch.int32, device=self.device)
+        return torch.cat([order, pad])
+
+    def full_row_order(self) -> Optional[torch.Tensor]:
+        """:meth:`row_order` of the whole-graph layout, built once."""
+        w_pad = self.ensure_full_layout()[0]
+        if w_pad < self.order_min_rows:
+            return None
+        if self._full_order is None:
+            self._full_order = self.row_order(torch.arange(self.n_nodes, device=self.device), w_pad)
+        return self._full_order
+
     def ensure_full_layout(self):
-        """Whole-graph gather layout ``(w_pad, nbr, w_inf, sp_s, sp_r, sp_w,
-        ids_w, deg_w)`` as device tensors — parts/ops independent, built
-        once and used by every redo chunk."""
+        """Whole-graph gather layout ``(w_pad, nbr, w_inf, tail, ids_w,
+        deg_w)`` on the device — parts/ops independent, built once and used
+        by every redo chunk."""
         if self._full_layout is None:
             self.build_sssp_problem(
                 np.zeros(1, np.int64), np.zeros(1, np.int64),
@@ -387,8 +451,9 @@ class BatchedTrafficEngine:
 
         Returns ``(args, window, w_real, box, full)`` where ``args`` is the
         positional-argument tuple of :func:`_sssp_solve` up to and including
-        ``h``. ``full`` is returned because a near-full window is promoted
-        to the whole graph here.
+        ``h`` (the row schedule, ``order``, just before it). ``full`` is
+        returned because a near-full window is promoted to the whole graph
+        here.
         """
         window, box = self._sssp_window(srcs[valid], dsts[valid], full)
         if not full and window.shape[0] > 0.6 * self.n_nodes:
@@ -398,7 +463,7 @@ class BatchedTrafficEngine:
             window, box = self._sssp_window(srcs, dsts, True)
         w_real = window.shape[0]
         if full and self._full_layout is not None:
-            w_pad, nbr, w_inf, sp_s, sp_r, sp_w, ids_w, deg_w = self._full_layout
+            w_pad, nbr, w_inf, tail, ids_w, deg_w = self._full_layout
         else:
             # Pad to a {2^k, 3·2^k} size grid (≤ 33 % padding waste), as the
             # JAX package does, so the layouts agree row for row.
@@ -413,14 +478,15 @@ class BatchedTrafficEngine:
             nbr, w_inf, sp_s, sp_r, sp_w = _capped_gather_layout(
                 self._glob2loc[es], self._glob2loc[er], ew, w_pad, self.nbr_cap
             )
-            s_pad = 0 if sp_s.shape[0] == 0 else max(
-                64, 1 << int(np.ceil(np.log2(sp_s.shape[0])))
-            )
-            if s_pad:
-                fill = s_pad - sp_s.shape[0]
-                sp_s = np.concatenate([sp_s, np.zeros(fill, np.int32)])
-                sp_r = np.concatenate([sp_r, np.zeros(fill, np.int32)])
-                sp_w = np.concatenate([sp_w, np.full(fill, np.inf, np.float32)])
+            n_sp = sp_s.shape[0]
+            if n_sp and (n_sp < 64 or n_sp & (n_sp - 1)):
+                # The JAX package pads its spill tail to a {64, 128, ...}
+                # size with edges 0 -> 0 of weight +inf; min is idempotent,
+                # so one such edge stands for them all.
+                sp_s = np.concatenate([np.zeros(1, np.int32), sp_s])
+                sp_r = np.concatenate([np.zeros(1, np.int32), sp_r])
+                sp_w = np.concatenate([np.full(1, np.inf, np.float32), sp_w])
+            tail = spill_tail(sp_s, sp_r, sp_w, w_pad, self.device)
             ids = np.full(w_pad, _BIG_ID, dtype=np.int32)
             ids[:w_real] = window.astype(np.int32)
             deg = np.zeros(w_pad, dtype=np.int64)
@@ -428,13 +494,10 @@ class BatchedTrafficEngine:
             self._glob2loc[window] = -1  # restore the scratch map
             nbr = self._tensor(nbr, torch.int32)
             w_inf = self._tensor(w_inf, torch.float32)
-            sp_s = self._tensor(sp_s, torch.int64)
-            sp_r = self._tensor(sp_r, torch.int64)
-            sp_w = self._tensor(sp_w, torch.float32)
             ids_w = self._tensor(ids)
             deg_w = self._tensor(deg)
             if full:
-                self._full_layout = (w_pad, nbr, w_inf, sp_s, sp_r, sp_w, ids_w, deg_w)
+                self._full_layout = (w_pad, nbr, w_inf, tail, ids_w, deg_w)
 
         cross = np.zeros(w_pad, dtype=np.int64)
         cross[:w_real] = cross_deg[window]
@@ -448,8 +511,9 @@ class BatchedTrafficEngine:
             loc_dst = np.where(valid, self._glob2loc[dsts], 0)
             self._glob2loc[window] = -1  # restore the scratch map
         dst_safe = np.where(valid, dsts, 0)
+        win_t = self._tensor(window)
+        order = self.full_row_order() if full else self.row_order(win_t, w_pad)
         if self._device_h_ok:
-            win_t = self._tensor(window)
             lon_w = torch.zeros(w_pad, dtype=torch.float32, device=self.device)
             lat_w = torch.zeros(w_pad, dtype=torch.float32, device=self.device)
             lon_w[:w_real] = self._lon_t[win_t]
@@ -465,7 +529,7 @@ class BatchedTrafficEngine:
             self._tensor(loc_src, torch.int64), self._tensor(loc_dst, torch.int64),
             self._tensor(dst_safe.astype(np.int32)), self._tensor(valid),
             deg_w, self._tensor(cross), ids_w,
-            nbr, w_inf, sp_s, sp_r, sp_w, h,
+            nbr, w_inf, tail, order, h,
         )
         return args, window, w_real, box, full
 

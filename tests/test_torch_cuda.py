@@ -242,3 +242,132 @@ def test_cuda_bell_matmul_rejects_short_block_rows(dtype, bs):
     with pytest.raises(ValueError, match="16-byte"):
         bell_matmul(*(t.to(dev) for t in host))
     assert kernels.KERNELS["bell_matmul"].launches == before
+
+
+def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same NaN mask, and equal values everywhere else (inf included)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [7, 128, 300])
+@pytest.mark.parametrize("cap", [None, 3])
+def test_cuda_frontier_gather_row_order_bit_exact(c, cap):
+    """With a random permutation as its row schedule the kernel gives the
+    plain version's min bit for bit, and in both modes the same bits as the
+    call without a schedule (each row is computed the same way wherever it
+    runs)."""
+    from repro_torch.kernels.frontier import frontier_gather, frontier_gather_ref
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(11)
+    pn = padded_neighbors(rng.integers(0, 700, 6000), rng.integers(0, 700, 6000),
+                          rng.random(6000).astype(np.float32), 700, cap=cap)
+    x = torch.as_tensor(rng.normal(size=(700, c)).astype(np.float32), device=dev)
+    x[torch.as_tensor(rng.random(700) < 0.1, device=dev)] = float("inf")
+    nbr = torch.as_tensor(pn.nbr, device=dev)
+    perm = torch.as_tensor(rng.permutation(700).astype(np.int32), device=dev)
+    for mode in ("min", "sum"):
+        w = np.where(pn.mask > 0, pn.w, np.float32(np.inf)) if mode == "min" else pn.w * pn.mask
+        w = torch.as_tensor(w.astype(np.float32), device=dev)
+        got = frontier_gather(x, nbr, w, mode=mode, order=perm)
+        assert torch.equal(got, frontier_gather(x, nbr, w, mode=mode))
+        want = frontier_gather_ref(x, nbr, w, mode=mode)
+        if mode == "min":
+            assert torch.equal(got, want)
+        else:
+            fin = torch.isfinite(want)
+            assert torch.equal(fin, torch.isfinite(got))
+            torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 2])
+def test_cuda_frontier_gather_min_propagates_nan(cap):
+    """NaN and -inf in x, row 0 included (every padded slot reads it with
+    weight +inf, and -inf + +inf is NaN): the kernel's min propagates NaN
+    as torch.minimum and jnp.minimum do, equal to the plain version on the
+    card and on the CPU in NaN mask and in every other value; with a spill
+    tail, the scatter-min epilogue is held to the same bar."""
+    from repro_torch.kernels.frontier import frontier_gather, frontier_gather_ref
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(12)
+    n, c = 600, 128
+    pn = padded_neighbors(rng.integers(0, n, 3000), rng.integers(0, n, 3000),
+                          rng.random(3000).astype(np.float32), n, cap=cap)
+    assert (pn.mask == 0).any() and (cap is None or pn.n_spill > 0)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    x[0, :4] = [np.nan, -np.inf, np.inf, np.nan]
+    x[rng.random((n, c)) < 0.02] = np.nan
+    x[rng.random((n, c)) < 0.02] = -np.inf
+    xc = torch.as_tensor(x, device=dev)
+    w = torch.as_tensor(np.where(pn.mask > 0, pn.w, np.float32(np.inf)), device=dev)
+    nbr = torch.as_tensor(pn.nbr, device=dev)
+    got = frontier_gather(xc, nbr, w, mode="min")
+    assert bool(torch.isnan(got).any()) and bool(torch.isneginf(got).any())
+    assert _nan_equal(got, frontier_gather_ref(xc, nbr, w, mode="min"))
+    assert _nan_equal(got.cpu(), frontier_gather_ref(xc.cpu(), nbr.cpu(), w.cpu(), mode="min"))
+    full = make_frontier_gather(pn, mode="min", device=dev)(xc)
+    assert _nan_equal(full.cpu(), make_frontier_gather(pn, mode="min", device="cpu")(torch.as_tensor(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 33, 100])
+@pytest.mark.parametrize("d", [18, 64, 130])
+def test_cuda_embedding_bag_widths_and_nonfinite_rows(l, d):
+    """Every slot counts, weight 0 or not: an inf row under a weight-0 slot
+    gives NaN as in the plain version (the reference multiplies by 0).
+    Within 1e-6 of the plain version elsewhere, with mean weights as DIN
+    pools (the bar is DIN's: float32 sums of 100 unit-size terms taken in
+    another order differ by more), at bag lengths that are one slot, one
+    over a warp and DIN's, and at widths of 8-byte parts (18, 64, more than
+    32 parts: 130); two launches give the same bits."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(13)
+    v, b = 300, 70
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    table[7] = np.inf
+    idx = rng.integers(8, v, size=(b, l)).astype(np.int32)
+    w = rng.random((b, l)).astype(np.float32)
+    idx[: b // 2, -1] = 7      # an inf row under a weight-0 slot: NaN
+    w[: b // 2, -1] = 0.0
+    w[b // 2:, 0] = 0.0        # a weight-0 slot over a finite row: no effect
+    w /= np.maximum(w.sum(axis=1, keepdims=True), 1e-9)  # mean weights, as DIN pools
+    args = [torch.as_tensor(a, device=dev) for a in (table, idx, w)]
+    got = embedding_bag(*args)
+    want = embedding_bag_ref(*args)
+    nan = torch.isnan(want)
+    assert bool(nan[: b // 2].all()) and not bool(nan[b // 2:].any())
+    assert torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=1e-6, atol=1e-6)
+    assert torch.equal(got.nan_to_num(0.0), embedding_bag(*args).nan_to_num(0.0))
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_large_table():
+    """A 28.8 MB table (400,000 rows of 18) and DIN's bag length: within
+    1e-6 of the plain version with mean weights, an inf row under a
+    weight-0 slot gives NaN, two launches give the same bits."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(14)
+    v, d, b, l = 400_000, 18, 512, 100
+    table = torch.as_tensor(rng.normal(scale=0.05, size=(v, d)).astype(np.float32), device=dev)
+    table[399_000] = float("inf")
+    idx = torch.as_tensor(rng.integers(0, v - 1000, size=(b, l)).astype(np.int32), device=dev)
+    mask = torch.as_tensor((np.arange(l)[None, :] < rng.integers(1, l + 1, size=(b, 1))).astype(np.float32),
+                           device=dev)
+    idx[:8, -1] = 399_000
+    mask[:8, -1] = 0.0
+    w = mask / torch.clamp(mask.sum(dim=1, keepdim=True), min=1e-9)
+    got = embedding_bag(table, idx, w)
+    want = embedding_bag_ref(table, idx, w)
+    nan = torch.isnan(want)
+    assert bool(nan[:8].all()) and not bool(nan[8:].any()) and torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[8:], want[8:], rtol=1e-6, atol=1e-6)
+    assert torch.equal(got.nan_to_num(0.0), embedding_bag(table, idx, w).nan_to_num(0.0))

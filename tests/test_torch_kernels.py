@@ -39,7 +39,7 @@ from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_S
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, mha
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
-from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather
+from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather, spill_tail
 
 # The suite runs in several worker processes at once; one intra-op thread
 # each keeps PyTorch from oversubscribing the cores.
@@ -78,13 +78,53 @@ def test_frontier_gather_plain_matches_pallas(c):
     np.testing.assert_allclose(got_sum, np.asarray(pallas_sum), rtol=1e-5, atol=1e-5)
 
 
+def test_frontier_gather_min_propagates_nan_like_pallas():
+    """NaN and -inf in x (row 0 too, which every padded slot reads with
+    weight +inf, so -inf there gives NaN): the plain version's min is
+    jnp.minimum's, NaN wherever any x + w is NaN, equal to the Pallas
+    kernel in NaN mask and in every other value."""
+    n, c = 41, 12
+    _, pn, jpn = _layout(0, n, 150)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    x[0, :3] = [np.nan, -np.inf, np.inf]
+    x[rng.random((n, c)) < 0.05] = np.nan
+    x[rng.random((n, c)) < 0.05] = -np.inf
+    w_inf = np.where(pn.mask > 0, pn.w, np.float32(np.inf))
+    got = frontier_gather(torch.as_tensor(x), torch.as_tensor(pn.nbr), torch.as_tensor(w_inf),
+                          mode="min").numpy()
+    want = np.asarray(jax_frontier_gather(
+        jnp.asarray(x), jnp.asarray(jpn.nbr), jnp.asarray(w_inf), mode="min", interpret=True))
+    assert (pn.mask == 0).any() and np.isnan(got).any() and np.isneginf(got).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got, nan=0.0), np.nan_to_num(want, nan=0.0))
+
+
+@pytest.mark.parametrize("mode", ["min", "sum"])
+def test_frontier_gather_row_order_changes_nothing(mode):
+    """``order`` only schedules rows: with a permutation the result equals
+    the call without it (the plain version ignores it), and frontier_relax
+    passes it through."""
+    n, c = 41, 9
+    _, pn, _ = _layout(7, n, 150)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32))
+    perm = torch.as_tensor(rng.permutation(n).astype(np.int32))
+    w = pn.w * pn.mask if mode == "sum" else np.where(pn.mask > 0, pn.w, np.float32(np.inf))
+    nbr, w = torch.as_tensor(pn.nbr), torch.as_tensor(w)
+    assert torch.equal(frontier_gather(x, nbr, w, mode=mode, order=perm),
+                       frontier_gather(x, nbr, w, mode=mode))
+    if mode == "min":
+        assert torch.equal(frontier_relax(x, nbr, w, None, perm), frontier_gather(x, nbr, w, mode="min"))
+
+
 @pytest.mark.parametrize("mode", ["min", "sum"])
 @pytest.mark.parametrize("cap", [None, 1, 2])
 def test_make_frontier_gather_capped_matches_jax(mode, cap):
     n, c = 29, 7
     (s, r, w), pn, jpn = _layout(3, n, 90, cap=cap)
     if cap is not None:
-        assert pn.n_spill > 0  # the spill epilogue is exercised
+        assert pn.n_spill > 0  # the spill tail is exercised
     x = np.random.default_rng(4).random(size=(n, c)).astype(np.float32)
     got = make_frontier_gather(pn, mode=mode, device="cpu")(torch.as_tensor(x)).numpy()
     carried = convert.padded_neighbors_from_arrays(
@@ -109,11 +149,29 @@ def test_frontier_relax_matches_uncapped_gather():
     x = torch.as_tensor(np.random.default_rng(6).random(size=(n, c)).astype(np.float32))
     w_inf = torch.as_tensor(np.where(pn.mask > 0, pn.w, np.float32(np.inf)))
     got = frontier_relax(
-        x, torch.as_tensor(pn.nbr), w_inf, torch.as_tensor(pn.spill_s).long(),
-        torch.as_tensor(pn.spill_r).long(), torch.as_tensor(pn.spill_w),
+        x, torch.as_tensor(pn.nbr), w_inf, spill_tail(pn.spill_s, pn.spill_r, pn.spill_w, n, "cpu"),
     )
     want = make_frontier_gather(padded_neighbors(s, r, w, n), mode="min", device="cpu")(x)
     assert torch.equal(got, want)
+
+
+def test_spill_tail_packs_by_receiver():
+    """The CSR tail of a shuffled COO spill: row offsets, the rows that have
+    a tail, each row's entries in their COO order, and the same relaxation
+    as the tail of the sorted COO."""
+    n, c = 23, 5
+    (s, r, w), pn, _ = _layout(9, n, 120, cap=1)
+    perm = np.random.default_rng(10).permutation(pn.n_spill)
+    tail = spill_tail(pn.spill_s[perm], pn.spill_r[perm], pn.spill_w[perm], n, "cpu")
+    counts = np.bincount(pn.spill_r, minlength=n)
+    np.testing.assert_array_equal(tail.ptr.numpy(), np.concatenate([[0], np.cumsum(counts)]))
+    np.testing.assert_array_equal(tail.rows.numpy(), np.flatnonzero(counts))
+    by_row = np.argsort(pn.spill_r[perm], kind="stable")
+    np.testing.assert_array_equal(tail.src.numpy(), pn.spill_s[perm][by_row])
+    x = torch.as_tensor(np.random.default_rng(11).random(size=(n, c)).astype(np.float32))
+    nbr, w_inf = torch.as_tensor(pn.nbr), torch.as_tensor(np.where(pn.mask > 0, pn.w, np.float32(np.inf)))
+    assert torch.equal(frontier_relax(x, nbr, w_inf, tail),
+                       frontier_relax(x, nbr, w_inf, spill_tail(pn.spill_s, pn.spill_r, pn.spill_w, n, "cpu")))
 
 
 @pytest.mark.parametrize("block_size", [16, 32, 128])

@@ -124,3 +124,65 @@ def test_engine_cache_keyed_by_params_and_device(graphs):
     assert get_engine(g, "gis_short", max_expansions=64, device="cpu").max_expansions == 64
     assert get_engine(g, "gis_short", max_expansions=64, device="cpu") is not get_engine(
         g, "gis_short", device="cpu")
+
+
+GIS_CASES = sorted(c for c in CASES if CASES[c][0] == "gis")
+
+
+@pytest.mark.parametrize("case", GIS_CASES)
+def test_equivalence_with_row_order(graphs, case):
+    """Every window (and the whole-graph redo layout) with its Hilbert row
+    schedule in place: the four counters stay bit-equal to the JAX scalar
+    oracle."""
+    name, pattern, n_ops, log_seed, kind, k, parts_seed, engine_kw = CASES[case]
+    g, jg = graphs[name]
+    ops = traffic.generate_ops(g, n_ops=n_ops, seed=log_seed, pattern=pattern)
+    jops = jax_traffic.generate_ops(jg, n_ops=n_ops, seed=log_seed, pattern=pattern)
+    parts = _parts(kind, jg, k, parts_seed)
+    ref = jax_traffic.execute_ops(jg, jops, parts, k, engine="scalar")
+    eng = BatchedTrafficEngine(g, ops.pattern, device="cpu", **engine_kw)
+    eng.order_min_rows = 0
+    orders = []
+    build = eng.build_sssp_problem
+
+    def recording_build(*a, **kw):
+        out = build(*a, **kw)
+        orders.append(out[0][-2])
+        return out
+
+    eng.build_sssp_problem = recording_build
+    _assert_exact(eng.run(ops, parts, k, t_l=ops.t_l, t_pg=ops.t_pg), ref)
+    assert orders and all(o is not None for o in orders)
+
+
+def _hilbert_positions(eng, ids):
+    return eng._rank_t[torch.as_tensor(ids)].numpy()
+
+
+def test_row_order_is_a_permutation_of_the_window_rows(graphs):
+    g, _ = graphs["gis"]
+    eng = BatchedTrafficEngine(g, "gis_short", device="cpu")
+    eng.order_min_rows = 0
+    # The whole-graph layout: every row once, real rows along the curve.
+    w_pad = eng.ensure_full_layout()[0]
+    full = eng.full_row_order().numpy()
+    assert full.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(full), np.arange(w_pad))
+    assert np.all(np.diff(_hilbert_positions(eng, full[:g.n_nodes])) > 0)
+    np.testing.assert_array_equal(full[g.n_nodes:], np.arange(g.n_nodes, w_pad))
+    # A window: its rows (local ids) along the curve, then its padding rows.
+    ops = traffic.generate_ops(g, n_ops=1, seed=2, pattern="gis_short")
+    srcs, dsts = ops.starts.astype(np.int64), ops.ends.astype(np.int64)
+    valid = np.ones(1, bool)
+    args, window, w_real, _, full_win = eng.build_sssp_problem(
+        srcs, dsts, valid, np.zeros(g.n_nodes, np.int64), full=False)
+    assert not full_win and w_real < g.n_nodes
+    order = args[-2].numpy()
+    w_pad = args[-1].shape[0]
+    np.testing.assert_array_equal(np.sort(order), np.arange(w_pad))
+    assert np.all(np.diff(_hilbert_positions(eng, window[order[:w_real]])) > 0)
+    np.testing.assert_array_equal(order[w_real:], np.arange(w_real, w_pad))
+    # Below the threshold the rows run in index order (no schedule).
+    eng.order_min_rows = w_pad + 1
+    args, *_ = eng.build_sssp_problem(srcs, dsts, valid, np.zeros(g.n_nodes, np.int64), full=False)
+    assert args[-2] is None
