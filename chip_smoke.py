@@ -29,12 +29,20 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
 5. granite-3-8b at its full config and depth (``configs/granite_3_8b.FULL``,
    random bf16 weights): the forward pass and loss over 4,096 tokens
    through ``flash_attention`` (every launch on its tensor-core route),
-   then the continuous-batching server answering 8 requests, twice.
+   then the continuous-batching server answering 8 requests, twice;
+6. the paper's dynamic experiments (Chapter 7) at ``scale=1.0``, k=4, run
+   after phase 3 from phase 2's DiDiC maps and carried states: Insert
+   (three insert methods at 5 % and 25 % dynamism), Stress (25 %, one cold
+   DiDiC iteration; on GIS at ``scale=0.01`` through ``bell_matmul`` too),
+   Dynamic (5 maintained slices of 5 % against the unmaintained map;
+   Twitter twice), Insert with vertex growth (4 slices, 30 % inserts) and
+   the maintenance cost; GIS replays a 2,000-op log here.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
-(``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``)
-and the granite forward call of phase 5 (``flash_attention``). The launch
+(``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
+the granite forward call of phase 5 (``flash_attention``) and every replay
+and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``). The launch
 counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
@@ -349,6 +357,15 @@ def _exact(a, b) -> bool:
                for f in ("per_op_total", "per_op_global", "per_partition", "per_vertex"))
 
 
+def _oracle_check(graph, ops, parts, dev, what) -> None:
+    from repro_torch.core.traffic import OpLog, execute_ops
+
+    sub = OpLog(ops.pattern, ops.starts[:64].copy(), ops.ends[:64].copy(), ops.t_l, ops.t_pg)
+    got = execute_ops(graph, sub, parts, 4, engine="batched", device=dev)
+    want = execute_ops(graph, sub, parts, 4, engine="scalar")
+    check(_exact(got, want), f"{what}: batched on the card == scalar oracle, 64 ops, all four counters")
+
+
 def _add_counts(main_launches, counts) -> None:
     for kname, n in counts.items():
         main_launches[kname] = main_launches.get(kname, 0) + n
@@ -358,12 +375,12 @@ def phase2_dataset(name, graph, dev, main_launches):
     """Drive the static experiment on one dataset. The launch counts of
     each main-path replay (counts set to 0 just before it, read just after)
     are added into ``main_launches``; the checks that follow launch kernels
-    too, but outside those windows."""
+    too, but outside those windows. Returns the DiDiC map, its carried
+    state and the 100 iterations' seconds, where phase 6 starts."""
     from repro_torch import kernels
     from repro_torch.core import metrics, partitioners
     from repro_torch.core.didic import DidicConfig, didic_partition
     from repro_torch.core.framework import PartitionedGraphService
-    from repro_torch.core.traffic import OpLog, execute_ops
 
     k = 4
     config = DidicConfig(k=k, iterations=DIDIC_ITERATIONS, smooth_cap=256 if name == "filesystem" else 64)
@@ -412,11 +429,8 @@ def phase2_dataset(name, graph, dev, main_launches):
         if name == "gis":
             check(launched > 0, f"gis {pname}: the replay went through frontier_gather ({launched} launches)")
 
-    sub = OpLog(ops.pattern, ops.starts[:64].copy(), ops.ends[:64].copy(), ops.t_l, ops.t_pg)
     for pname in ("random", "didic"):
-        got = execute_ops(graph, sub, parts[pname], k, engine="batched", device=dev)
-        want = execute_ops(graph, sub, parts[pname], k, engine="scalar")
-        check(_exact(got, want), f"{name} {pname}: batched on the card == scalar oracle, 64 ops, all four counters")
+        _oracle_check(graph, ops, parts[pname], dev, f"{name} {pname}")
 
     check(tg["didic"] < tg["random"], f"{name}: DiDiC T_G% {100 * tg['didic']:.3f} < random {100 * tg['random']:.3f}")
     say(f"phase 2: {name} DiDiC cuts global traffic by {100 * (1 - tg['didic'] / tg['random']):.1f}% "
@@ -427,6 +441,7 @@ def phase2_dataset(name, graph, dev, main_launches):
     p2, s2 = didic_partition(graph, five, seed=1, device=dev)
     check(np.array_equal(p1, p2) and torch.equal(s1.w, s2.w),
           f"{name}: segment-route DiDiC, 5 iterations twice: bit-equal parts and w")
+    return parts["didic"], svc.runtime.state, didic_s
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +450,8 @@ def phase2_dataset(name, graph, dev, main_launches):
 def phase3(dev, main_launches):
     """DiDiC's kernel route against its segment route. The kernel route's
     run is the main path here: its launch counts (set to 0 just before it,
-    read just after) are added into ``main_launches``."""
+    read just after) are added into ``main_launches``. Returns the graph
+    and the kernel route's map, where phase 6's kernel-route Stress starts."""
     from repro_torch import kernels
     from repro_torch.core import metrics
     from repro_torch.core.didic import DidicConfig, didic_partition
@@ -466,6 +482,261 @@ def phase3(dev, main_launches):
             check(launched == 0, "DiDiC's segment route launched no bell_matmul")
     ratio = max(cuts.values()) / max(min(cuts.values()), 1e-12)
     check(ratio <= 1.5, f"kernel-route edge cut within 1.5x of the segment route's ({ratio:.3f}x)")
+    return gis, p
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+N_OPS_GIS_DYNAMIC = 2_000       # phase 6's GIS log (the GIS replay is host-paced)
+INSERT_LEVELS = (0.05, 0.25)    # two of the paper's five dynamism levels (§7.4)
+
+
+class _Timed:
+    """A method wrapped to keep the seconds of each call, the card
+    synchronised on both sides."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _counted(fn, main_launches):
+    """Run ``fn`` as a main-path run: the launch counts set to 0 just before
+    it, read just after and added into ``main_launches``."""
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    _add_counts(main_launches, counts)
+    return out, counts
+
+
+def _service(graph, config, dev, parts, state):
+    """A service on ``parts`` with DiDiC's carried ``state`` (``None``: cold),
+    its replays and maintenance passes timed."""
+    from repro_torch.core.framework import PartitionedGraphService
+
+    svc = PartitionedGraphService(graph, 4, config, device=dev)
+    svc.runtime.state = state
+    svc.partition_with(parts.copy())
+    svc.run_ops = _Timed(svc.run_ops)
+    svc.runtime.maintain = _Timed(svc.runtime.maintain)
+    return svc
+
+
+def _bare(graph):
+    """The same arrays as a new graph object, with none of its caches."""
+    from repro_torch.graphs.structure import Graph
+
+    return Graph(n_nodes=graph.n_nodes, senders=graph.senders, receivers=graph.receivers,
+                 edge_weight=graph.edge_weight, node_attrs=graph.node_attrs, name=graph.name)
+
+
+def _engine_build_seconds(graph, pattern, dev) -> float:
+    """Seconds to build what a grown graph's first replay builds: its
+    engine, for GIS with the whole-graph layout and row schedule. (Its
+    first maintenance pass rebuilds DiDiC's product: that shows in the
+    pass's own time.)"""
+    from repro_torch.core.traffic_batched import BatchedTrafficEngine
+
+    def build():
+        eng = BatchedTrafficEngine(_bare(graph), pattern, device=dev)
+        if eng.kind == "sssp":
+            eng.ensure_full_layout()
+            eng.full_row_order()
+
+    return once(build)[1]
+
+
+def _pg(res) -> float:
+    return 100.0 * res.percent_global
+
+
+def phase6_dataset(name, graph, start, dev, main_launches):
+    """The paper's dynamic experiments (Chapter 7) on one dataset at the
+    paper's scale, from phase 2's DiDiC map and carried state, with the
+    parameters of the JAX package's ``benchmarks/paper_tables.py``: Insert
+    (§7.4), Stress (§7.5), Dynamic (§7.6) with its unmaintained comparator,
+    Insert with vertex growth, and the maintenance cost. Every replay and
+    maintenance run here is a main-path run (its launches counted)."""
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core import metrics
+    from repro_torch.core.didic import didic_refine
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.dynamism import apply_dynamism, generate_dynamism
+    from repro_torch.core.framework import InsertPartitioner
+    from repro_torch.core.traffic import generate_ops
+
+    k = 4
+    parts0, state0, didic_s = start
+    config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic(name, k)
+    n_ops = N_OPS_GIS_DYNAMIC if name == "gis" else N_OPS
+    ops = generate_ops(graph, n_ops=n_ops, seed=0)
+    say(f"phase 6: {name}, log {ops.pattern}, {n_ops} ops"
+        + (" (cut from 10,000: the GIS replay is host-paced)" if name == "gis" else ""))
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": 6, "dataset": name, "n_ops": n_ops}
+    fg = 0
+    replay_s, refine_s = [], []
+
+    def collect(svc):
+        replay_s.extend(svc.run_ops.seconds)
+        refine_s.extend(svc.runtime.maintain.seconds)
+
+    # Insert (§7.4): each method at two dynamism levels from the DiDiC map,
+    # fed the DiDiC replay's per-vertex traffic.
+    svc = _service(graph, config, dev, parts0, state0)
+    base, counts = _counted(lambda: svc.run_ops(ops), main_launches)
+    fg += counts["frontier_gather"]
+    out["didic_T_G_percent"] = _pg(base)
+    out["insert"] = {}
+    maps = {}
+    for method in ("random", "fewest_vertices", "least_traffic"):
+        for level in INSERT_LEVELS:
+            log = generate_dynamism(parts0, level, method, k=k, vertex_traffic=base.per_vertex, seed=0)
+            parts = maps[method, level] = apply_dynamism(parts0, log)
+            svc.partition_with(parts)
+            res, counts = _counted(lambda: svc.run_ops(ops), main_launches)
+            fg += counts["frontier_gather"]
+            out["insert"][f"{method}/{int(level * 100)}"] = {
+                "T_G_percent": _pg(res),
+                "cv_traffic": metrics.coefficient_of_variation(res.per_partition),
+            }
+    say(f"phase 6: {name} insert T_G % (5 / 25 % dynamism, DiDiC start {out['didic_T_G_percent']:.4f}): "
+        + "; ".join(f"{m} {out['insert'][m + '/5']['T_G_percent']:.4f} / {out['insert'][m + '/25']['T_G_percent']:.4f}"
+                    for m in ("random", "fewest_vertices", "least_traffic")))
+    _oracle_check(graph, ops, maps["least_traffic", 0.25], dev, f"{name} insert, least_traffic 25 % map")
+    collect(svc)
+
+    # Stress (§7.5): 25 % random dynamism, one cold DiDiC iteration.
+    svc = _service(graph, config, dev, parts0, None)
+    stress, counts = _counted(lambda: DynamicExperimentRuntime(svc, "random", seed=0).run(
+        ops, n_slices=1, amount=0.25, maintain_every=1, measure_damaged=True), main_launches)
+    fg += counts["frontier_gather"]
+    rec = stress.records[0]
+    out["stress"] = {"base": _pg(stress.baseline), "damaged": 100 * rec.damaged_percent_global,
+                     "repaired": 100 * rec.percent_global, "migrated": rec.migrated}
+    st = out["stress"]
+    check(st["damaged"] > st["base"] and st["repaired"] < st["damaged"],
+          f"{name} stress: damaged T_G % {st['damaged']:.4f} > base {st['base']:.4f}, repaired by one "
+          f"iteration to {st['repaired']:.4f} ({rec.migrated} migrated; the paper: one iteration repairs 25 %)")
+    collect(svc)
+
+    # Dynamic (§7.6): 5 slices of 5 % random dynamism, maintained every slice
+    # from the carried state. Random targets read neither the map nor the
+    # traffic, so the same partitioner stream regenerates the run's five
+    # logs, which applied to the start map give the unmaintained map.
+    def dynamic():
+        svc = _service(graph, config, dev, parts0, state0)
+        run, counts = _counted(lambda: DynamicExperimentRuntime(svc, "random", seed=0).run(
+            ops, n_slices=5, amount=0.05, maintain_every=1), main_launches)
+        collect(svc)
+        return run, counts["frontier_gather"]
+
+    run, n = dynamic()
+    fg += n
+    out["dynamic"] = [{"T_G_percent": 100 * r.percent_global, "migrated": r.migrated} for r in run.records]
+    stream = InsertPartitioner("random", k, seed=0)
+    unmaintained = parts0
+    for _ in range(5):
+        unmaintained = apply_dynamism(unmaintained, stream.allocate(unmaintained, 0.05))
+    svc = _service(graph, config, dev, unmaintained, None)
+    res, counts = _counted(lambda: svc.run_ops(ops), main_launches)
+    fg += counts["frontier_gather"]
+    collect(svc)
+    out["dynamic_unmaintained_T_G_percent"] = _pg(res)
+    say(f"phase 6: {name} dynamic T_G % (migrated) per slice: "
+        + ", ".join(f"{r['T_G_percent']:.4f} ({r['migrated']})" for r in out["dynamic"]))
+    check(_pg(run.final) < _pg(res),
+          f"{name} dynamic: maintained T_G % after 5 slices {_pg(run.final):.4f} < unmaintained {_pg(res):.4f}")
+    if name == "twitter":
+        again, n = dynamic()
+        fg += n
+        check([vars(r) for r in again.records] == [vars(r) for r in run.records]
+              and np.array_equal(again.parts, run.parts),
+              f"{name} dynamic run twice: identical records and final map")
+
+    # Insert with vertex growth: least_traffic, 30 % of the units allocate a
+    # vertex, 4 slices of 5 %, maintenance every second slice.
+    grown = []
+    svc = _service(graph, config, dev, parts0, state0)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    growth, counts = _counted(lambda: DynamicExperimentRuntime(svc, "least_traffic", seed=0).run(
+        ops, n_slices=4, amount=0.05, maintain_every=2, insert_rate=0.3,
+        on_slice=lambda i, r: grown.append(_bare(svc.graph))), main_launches)
+    fg += counts["frontier_gather"]
+    growth_peak = torch.cuda.max_memory_allocated()
+    n_grown = svc.graph.n_nodes - graph.n_nodes
+    check(n_grown == sum(r.inserted for r in growth.records) > 0,
+          f"{name} growth: {n_grown} vertices grown over 4 slices, one per insert unit")
+    _oracle_check(svc.graph, ops, svc.parts, dev, f"{name} growth, last grown graph ({svc.graph.n_nodes} vertices)")
+    growth_replay_s = list(svc.run_ops.seconds)
+    growth_refine_s = list(svc.runtime.maintain.seconds)
+    collect(svc)
+    del svc
+    builds = [_engine_build_seconds(g, ops.pattern, dev) for g in grown]
+    del grown
+    out["growth"] = {
+        "records": [{"T_G_percent": 100 * r.percent_global, "inserted": r.inserted,
+                     "migrated": r.migrated, "maintained": r.maintained} for r in growth.records],
+        "grown_vertices": n_grown, "replay_s": growth_replay_s, "refine_s": growth_refine_s,
+        "engine_build_s": builds,
+        "peak_device_bytes": growth_peak,
+    }
+    say(f"phase 6: {name} growth: +{n_grown} vertices, T_G % per slice "
+        + ", ".join(f"{r['T_G_percent']:.4f}" for r in out["growth"]["records"])
+        + "; engine build a growth slice " + ", ".join(f"{b:.2f}" for b in builds)
+        + " s; maintenance on the grown graphs (DiDiC's product rebuilt) "
+        + ", ".join(f"{t:.2f}" for t in growth_refine_s) + f" s; peak {growth_peak} B")
+
+    # Maintenance cost: one warm iteration against phase 2's 100.
+    _, one_s = once(lambda: didic_refine(graph, parts0, config, state=state0, iterations=1, device=dev))
+    out["maintenance"] = {"one_iteration_s": one_s, "initial_100_s": didic_s, "ratio_percent": 100 * one_s / didic_s}
+    say(f"phase 6: {name} maintenance: one warm iteration {one_s:.3f} s = {100 * one_s / didic_s:.2f} % of "
+        f"the initial {DIDIC_ITERATIONS} iterations' {didic_s:.2f} s (the paper: ~1 %)")
+
+    out["replay_s"] = replay_s
+    out["refine_s"] = refine_s
+    out["peak_device_bytes"] = max(peak, torch.cuda.max_memory_allocated())
+    out["frontier_gather_launches"] = fg
+    say(json.dumps(out))
+    if name == "gis":
+        check(fg > 0, f"gis phase 6: the replays went through frontier_gather ({fg} launches)")
+
+
+def phase6_bell(gis, parts0, dev, main_launches):
+    """The Stress experiment on GIS at ``scale=0.01`` from phase 3's
+    kernel-route map and with its config, so that its maintenance runs
+    through ``bell_matmul``."""
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.traffic import generate_ops
+
+    config = DidicConfig(k=4, iterations=20, use_kernel=True, block_size=128)
+    svc = PartitionedGraphService(gis, 4, config, device=dev).partition_with(parts0)
+    ops = generate_ops(gis, n_ops=N_OPS_GIS_DYNAMIC, seed=0)
+    run, counts = _counted(lambda: DynamicExperimentRuntime(svc, "random", seed=0).run(
+        ops, n_slices=1, amount=0.25, maintain_every=1, measure_damaged=True), main_launches)
+    rec = run.records[0]
+    base, dmg, rep = _pg(run.baseline), 100 * rec.damaged_percent_global, 100 * rec.percent_global
+    say(f"phase 6: GIS 0.01 stress with DiDiC's kernel route: base {base:.4f}, damaged {dmg:.4f}, repaired "
+        f"{rep:.4f} T_G %; launches {json.dumps(counts, sort_keys=True)}")
+    check(counts["bell_matmul"] > 0, f"GIS 0.01 stress maintenance went through bell_matmul "
+                                     f"({counts['bell_matmul']} launches)")
+    check(dmg > base and rep < dmg, "GIS 0.01 stress on the kernel route: damaged > base, repaired < damaged")
 
 
 def bf16_gaps(got, want, tile: int = 64):
@@ -779,12 +1050,18 @@ def main() -> int:
     say(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {}
+    starts = {}
     for name, graph in graphs.items():
-        phase2_dataset(name, graph, dev, main_launches)
+        starts[name] = phase2_dataset(name, graph, dev, main_launches)
         say(f"phase 2 {name} done at {time.perf_counter() - t_start:.1f} s")
-    phase3(dev, main_launches)
+    gis_small, kernel_parts = phase3(dev, main_launches)
     say(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
-    del graphs
+    for name, graph in graphs.items():
+        phase6_dataset(name, graph, starts[name], dev, main_launches)
+        say(f"phase 6 {name} done at {time.perf_counter() - t_start:.1f} s")
+    phase6_bell(gis_small, kernel_parts, dev, main_launches)
+    say(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    del graphs, starts, gis_small
     torch.cuda.empty_cache()
     phase4_din(dev, records, main_launches)
     torch.cuda.empty_cache()
@@ -792,7 +1069,8 @@ def main() -> int:
     phase5_lm(dev, main_launches)
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
-        "user_vector in phase 4, the granite forward in phase 5): " + json.dumps(main_launches, sort_keys=True))
+        "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
+        "phase 6): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -1,7 +1,10 @@
 """DiDiC — Distributed Diffusive Clustering (paper §4.1.3), on a device.
 
-Twin of ``repro.core.didic`` for graphs without a growth store (the
-capacity-overlay path comes with the dynamic slice). One DiDiC iteration is
+Twin of ``repro.core.didic`` for graphs without a growth store. The JAX
+package refines store-backed (grown) graphs with a capacity-overlay step so
+that its compiled closures never retrace; the port's eager step has nothing
+to retrace, so a grown graph is refined with the ordinary step, its
+products built afresh on the new graph object. One DiDiC iteration is
 a pair of coupled diffusion systems per partition ``c``; with the
 symmetrized edge list and the per-edge coefficient ``c_e = wt(e)·α(e)``
 (Metropolis weights ``α(e) = 1/(1 + max(D_u, D_v))``) every inner step is a
@@ -287,14 +290,21 @@ def didic_refine(
     seed: int = 0,
     device=None,
     commit_masks: Optional[Sequence[np.ndarray]] = None,
+    pinned: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, DidicState]:
     """Repair/maintain an existing partitioning (paper Stress/Dynamic
     experiments): seeds loads from ``parts``, runs at full smoothing width
     and commits deterministically (``commit_prob=1``), as the JAX package
     does. ``commit_masks`` as in :func:`didic_partition`.
+
+    ``pinned`` vertices (the placement's replicated hot set) keep their
+    incoming assignment: diffusion runs unchanged and the pins are restored
+    on the host in the returned map. The next refine seeds the carried
+    state's assignment from its input map, so the pins carry over.
     """
     dev = resolve_device(device)
     config = dataclasses.replace(config, commit_prob=1.0)
+    pinned, before = _capture_pins(parts, pinned)
     parts_t = torch.as_tensor(np.array(parts, dtype=np.int32), device=dev)
     spmm, degc = make_spmm(graph, config, dev)
     if state is None:
@@ -305,4 +315,30 @@ def didic_refine(
         state, spmm, degc, config, iterations, seed, start_wide=True,
         commit_masks=commit_masks,
     )
-    return state.parts.cpu().numpy(), state
+    return _restore_pins(state.parts.cpu().numpy(), pinned, before), state
+
+
+def _capture_pins(
+    parts: np.ndarray, pinned: Optional[np.ndarray]
+) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """Pinned vertices and their assignments before a refine pass."""
+    if pinned is None:
+        return None, None
+    pinned = np.asarray(pinned, dtype=np.int64)
+    if pinned.size == 0:
+        return None, None
+    return pinned, np.asarray(parts)[pinned].copy()
+
+
+def _restore_pins(
+    new_parts: np.ndarray,
+    pinned: Optional[np.ndarray],
+    before: Optional[np.ndarray],
+) -> np.ndarray:
+    """Re-apply the pinned assignments to a refined map (an empty pin set
+    returns the map itself)."""
+    if pinned is None:
+        return new_parts
+    out = np.asarray(new_parts).copy()
+    out[pinned] = before
+    return out

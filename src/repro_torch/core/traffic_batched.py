@@ -1,6 +1,14 @@
 """Batched execution of evaluation logs on a device (PyTorch).
 
 Twin of ``repro.core.traffic_batched`` for graphs without a growth store.
+A graph grown by dynamism is a new :class:`Graph` and gets engines of its
+own from :func:`get_engine` (its layouts, and for GIS its Hilbert row
+schedule, built afresh); the JAX package instead adopts the grown graph into
+capacity-padded engines so that its compiled closures never retrace. The
+engines hold no reference to their graph, and a log keeps its per-engine
+compilations by weak reference, so an engine, and its device memory, goes
+when its graph goes.
+
 The log is packed into device tensors once and **all operations advance
 together**; the four counters come out equal, bit for bit, to the scalar
 oracle of :mod:`repro_torch.core.traffic`. Two strategies cover the
@@ -51,6 +59,7 @@ NumPy's float32 rows bit for bit and falls back to host rows when not.
 
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -243,7 +252,6 @@ class BatchedTrafficEngine:
         else:
             raise ValueError(f"unknown pattern {pattern!r}")
 
-        self.graph = graph
         self.n_nodes = graph.n_nodes
         if pattern == "filesystem":
             s, r = _t._filtered_children_csr_edges(graph)
@@ -263,7 +271,9 @@ class BatchedTrafficEngine:
             if pattern == "twitter":
                 self.max_levels = 2
             else:
-                self.max_levels = int(graph.node_attrs["depth"].max()) + 2
+                self._depth = graph.node_attrs["depth"].astype(np.int64)
+                self._parent = graph.node_attrs["parent"].astype(np.int64)
+                self.max_levels = int(self._depth.max()) + 2
             self._s_t = torch.as_tensor(self.s, device=dev)
             self._r_t = torch.as_tensor(self.r, device=dev)
             self._deg_t = torch.as_tensor(self.deg, dtype=torch.int64, device=dev)
@@ -310,8 +320,8 @@ class BatchedTrafficEngine:
 
     def _compile_bfs_log(self, ops) -> Tuple[np.ndarray, np.ndarray]:
         """Per-op expansion levels + per-level start histograms (cached on
-        the log per engine)."""
-        cache = ops.__dict__.setdefault("_torch_bfs_compile_cache", {})
+        the log per engine, held weakly)."""
+        cache = ops.__dict__.setdefault("_torch_bfs_compile_cache", weakref.WeakKeyDictionary())
         if self in cache:
             return cache[self]
         t = self.max_levels
@@ -320,8 +330,7 @@ class BatchedTrafficEngine:
         if self.pattern == "twitter":
             levels = np.full(n_ops, 2, dtype=np.int64)
         else:
-            depth = self.graph.node_attrs["depth"].astype(np.int64)
-            parent = self.graph.node_attrs["parent"].astype(np.int64)
+            depth, parent = self._depth, self._parent
             l_raw = depth[ops.ends] - depth[starts]
             cur = ops.ends.astype(np.int64).copy()
             steps = np.maximum(l_raw, 0).copy()
@@ -370,8 +379,9 @@ class BatchedTrafficEngine:
         return np.sqrt(dx * dx + dy * dy)  # [W, C]
 
     def _compile_sssp_log(self, ops) -> np.ndarray:
-        """Difficulty order: (coarse src cell, straight-line distance)."""
-        cache = ops.__dict__.setdefault("_torch_sssp_compile_cache", {})
+        """Difficulty order: (coarse src cell, straight-line distance),
+        cached on the log per engine, held weakly."""
+        cache = ops.__dict__.setdefault("_torch_sssp_compile_cache", weakref.WeakKeyDictionary())
         if self in cache:
             return cache[self]
         hd = np.hypot(
@@ -672,7 +682,8 @@ def get_engine(
     device=None,
 ) -> BatchedTrafficEngine:
     """Engine cache with the graph's lifetime, keyed by engine parameters
-    (``max_expansions`` normalized first) and device."""
+    (``max_expansions`` normalized first) and device. A grown graph is a
+    new object, so it gets new engines; the old graph's go with it."""
     dev = resolve_device(device)
     key = (pattern, chunk, resolve_max_expansions(max_expansions), delta_scale, str(dev))
     cache = graph.__dict__.setdefault("_torch_traffic_engine_cache", {})

@@ -1,8 +1,10 @@
 """Graph containers and format conversions (host-side numpy).
 
-Twin of ``repro.graphs.structure`` without the growth store: the port's
-first slice serves static graphs only. The graph stays on the host in COO
-form, and derives:
+Twin of ``repro.graphs.structure`` without the growth store
+(``GraphStore``): the host COO arrays are the whole graph, and a graph grown
+by :meth:`Graph.with_edges` or :meth:`Graph.with_vertices` is a new object
+whose engines and layouts are built afresh. The graph stays on the host in
+COO form, and derives:
 
 * CSR views for host-side traversal (the scalar oracle, the op-log
   generators),
@@ -238,6 +240,110 @@ class Graph:
         counts = np.bincount(s, minlength=self.n_nodes)
         indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         return indptr, indices, weights
+
+    # -------------------------------------------------------------- updates
+    def with_edges(
+        self,
+        senders: np.ndarray,
+        receivers: np.ndarray,
+        weights: Optional[np.ndarray] = None,
+    ) -> "Graph":
+        """New :class:`Graph` with the given edges appended.
+
+        The node set (and ``node_attrs``, shared by reference) is unchanged,
+        so partition maps, evaluation logs and per-vertex state stay valid;
+        every structure-derived cache (CSR views, layouts, engines, DiDiC's
+        products) is built afresh on the new object. This is how the
+        service applies a dynamism log that inserts edges.
+        """
+        senders = np.asarray(senders, dtype=self.senders.dtype)
+        receivers = np.asarray(receivers, dtype=self.receivers.dtype)
+        if weights is None:
+            weights = np.ones(senders.shape[0], dtype=np.float32)
+        weights = np.asarray(weights, dtype=np.float32)
+        if not (senders.shape == receivers.shape == weights.shape):
+            raise ValueError("with_edges arrays must have matching shapes")
+        for ends in (senders, receivers):
+            if ends.size and (ends.min() < 0 or ends.max() >= self.n_nodes):
+                raise ValueError("with_edges endpoints must be existing vertices")
+        return Graph(
+            n_nodes=self.n_nodes,
+            senders=np.concatenate([self.senders, senders]),
+            receivers=np.concatenate([self.receivers, receivers]),
+            edge_weight=np.concatenate([self.edge_weight, weights]),
+            node_attrs=self.node_attrs,
+            name=self.name,
+        )
+
+    def with_vertices(
+        self,
+        n_new: int,
+        attrs: Optional[Dict[str, np.ndarray]] = None,
+        senders: Optional[np.ndarray] = None,
+        receivers: Optional[np.ndarray] = None,
+        weights: Optional[np.ndarray] = None,
+    ) -> "Graph":
+        """New :class:`Graph` with ``n_new`` vertices appended, plus their
+        incident edges.
+
+        The new vertices take ids ``n_nodes .. n_nodes + n_new - 1``; edge
+        endpoints may name old or new vertices. ``attrs[key]`` gives the
+        appended rows (shape ``[n_new, ...]``) of per-node metadata; keys
+        not given get zero rows of the matching dtype (sentinels such as
+        ``parent = -1`` must be passed explicitly). Attr arrays are
+        reallocated, so the old graph stays valid, and every structure
+        cache is built afresh on the new object. This is how the service
+        applies a dynamism log that allocates vertices (the Insert
+        experiment).
+        """
+        n_new = int(n_new)
+        if n_new < 0:
+            raise ValueError("with_vertices needs n_new >= 0")
+        n_total = self.n_nodes + n_new
+        attrs = attrs or {}
+        unknown = set(attrs) - set(self.node_attrs)
+        if unknown:
+            raise ValueError(f"with_vertices attrs not in node_attrs: {sorted(unknown)}")
+        new_attrs: Dict[str, np.ndarray] = {}
+        for key, old in self.node_attrs.items():
+            if old.shape[0] != self.n_nodes:
+                new_attrs[key] = old  # not per-node metadata; carried as-is
+                continue
+            rows = attrs.get(key)
+            if rows is None:
+                rows = np.zeros((n_new,) + old.shape[1:], dtype=old.dtype)
+            else:
+                rows = np.asarray(rows, dtype=old.dtype)
+                if rows.shape != (n_new,) + old.shape[1:]:
+                    raise ValueError(
+                        f"with_vertices attrs[{key!r}] has shape {rows.shape}, "
+                        f"want {(n_new,) + old.shape[1:]}"
+                    )
+            new_attrs[key] = np.concatenate([old, rows])
+        if senders is None:
+            senders = np.zeros(0, dtype=self.senders.dtype)
+        if receivers is None:
+            receivers = np.zeros(0, dtype=self.receivers.dtype)
+        senders = np.asarray(senders, dtype=self.senders.dtype)
+        receivers = np.asarray(receivers, dtype=self.receivers.dtype)
+        if weights is None:
+            weights = np.ones(senders.shape[0], dtype=np.float32)
+        weights = np.asarray(weights, dtype=np.float32)
+        if not (senders.shape == receivers.shape == weights.shape):
+            raise ValueError("with_vertices edge arrays must have matching shapes")
+        for ends in (senders, receivers):
+            if ends.size and (ends.min() < 0 or ends.max() >= n_total):
+                raise ValueError(
+                    "with_vertices endpoints must be existing or appended vertices"
+                )
+        return Graph(
+            n_nodes=n_total,
+            senders=np.concatenate([self.senders, senders]),
+            receivers=np.concatenate([self.receivers, receivers]),
+            edge_weight=np.concatenate([self.edge_weight, weights]),
+            node_attrs=new_attrs,
+            name=self.name,
+        )
 
     def to_block_ell(self, block_size: int = 128, undirected: bool = True) -> BlockEll:
         """Pack the (weighted) adjacency into the BELL layout for ``bell_matmul``.

@@ -371,3 +371,37 @@ def test_cuda_embedding_bag_large_table():
     assert bool(nan[:8].all()) and not bool(nan[8:].any()) and torch.equal(torch.isnan(got), nan)
     torch.testing.assert_close(got[8:], want[8:], rtol=1e-6, atol=1e-6)
     assert torch.equal(got.nan_to_num(0.0), embedding_bag(table, idx, w).nan_to_num(0.0))
+
+
+@pytest.mark.cuda
+def test_cuda_dynamic_run_with_growth_matches_scalar_oracle():
+    """Three slices of the dynamic cycle on GIS with vertex growth (least
+    traffic, 30 % inserts, maintenance every slice): each slice's counters
+    on the card equal the scalar oracle on that slice's map and grown graph,
+    and the replays went through frontier_gather."""
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.traffic import execute_ops
+    from repro_torch.graphs import datasets
+
+    dev = _cuda_or_skip()
+    g = datasets.load("gis", scale=0.005)
+    svc = PartitionedGraphService(g, 4, DidicConfig(k=4, iterations=10), device=dev)
+    svc.partition_didic(seed=0)
+    ops = svc.make_ops(n_ops=100, seed=3)
+    checked = []
+
+    def on_slice(i, result):
+        want = execute_ops(svc.graph, ops, svc.parts, 4, engine="scalar")
+        for field in ("per_op_total", "per_op_global", "per_partition", "per_vertex"):
+            np.testing.assert_array_equal(getattr(result, field), getattr(want, field), err_msg=field)
+        checked.append(svc.graph.n_nodes)
+
+    before = kernels.launch_counts()["frontier_gather"]
+    run = DynamicExperimentRuntime(svc, insert_method="least_traffic", seed=0).run(
+        ops, n_slices=3, amount=0.05, maintain_every=1, insert_rate=0.3, on_slice=on_slice)
+    assert kernels.launch_counts()["frontier_gather"] > before
+    assert len(checked) == 3 and checked[0] > g.n_nodes and checked[2] > checked[0]
+    assert sum(r.inserted for r in run.records) == svc.graph.n_nodes - g.n_nodes
+    assert all(r.maintained and r.migrated >= 0 for r in run.records)
