@@ -36,13 +36,24 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    DiDiC iteration; on GIS at ``scale=0.01`` through ``bell_matmul`` too),
    Dynamic (5 maintained slices of 5 % against the unmaintained map;
    Twitter twice), Insert with vertex growth (4 slices, 30 % inserts) and
-   the maintenance cost; GIS replays a 2,000-op log here.
+   the maintenance cost; GIS replays a 2,000-op log here;
+7. the hot-vertex placement and the paper's tables, run after phase 6:
+   (a) at ``scale=1.0``, k=4, from phase 2's DiDiC maps, a service with an
+   exception table of 128 replays each dataset's log (GIS: phase 6's
+   2,000 ops), re-selects its hot vertices (``refresh_placement``) and
+   replays again, beside capacities 8 and 32: totals conserved, T_G % never
+   higher, and on GIS the masked replay equal to the scalar oracle on 64
+   ops; (b) ``repro_torch.skew_smoke`` at the JAX package's parameters,
+   with its gates; (c) ``repro_torch.paper_tables`` at ``scale=0.01``,
+   DiDiC 20 iterations: every table's row names, finite values, and DiDiC
+   below random on every dataset.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
-the granite forward call of phase 5 (``flash_attention``) and every replay
-and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``). The launch
+the granite forward call of phase 5 (``flash_attention``), every replay
+and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``) and
+phase 7's replays and tables (``frontier_gather``). The launch
 counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
@@ -357,12 +368,12 @@ def _exact(a, b) -> bool:
                for f in ("per_op_total", "per_op_global", "per_partition", "per_vertex"))
 
 
-def _oracle_check(graph, ops, parts, dev, what) -> None:
+def _oracle_check(graph, ops, parts, dev, what, replicated=None) -> None:
     from repro_torch.core.traffic import OpLog, execute_ops
 
     sub = OpLog(ops.pattern, ops.starts[:64].copy(), ops.ends[:64].copy(), ops.t_l, ops.t_pg)
-    got = execute_ops(graph, sub, parts, 4, engine="batched", device=dev)
-    want = execute_ops(graph, sub, parts, 4, engine="scalar")
+    got = execute_ops(graph, sub, parts, 4, engine="batched", device=dev, replicated=replicated)
+    want = execute_ops(graph, sub, parts, 4, engine="scalar", replicated=replicated)
     check(_exact(got, want), f"{what}: batched on the card == scalar oracle, 64 ops, all four counters")
 
 
@@ -739,6 +750,120 @@ def phase6_bell(gis, parts0, dev, main_launches):
     check(dmg > base and rep < dmg, "GIS 0.01 stress on the kernel route: damaged > base, repaired < damaged")
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+PLACEMENT_CAPACITY = 128        # the JAX package's largest skew-sweep table
+TABLES_SCALE = 0.01             # the paper tables inside this script (full scale: own calls)
+TABLES_DIDIC_ITERATIONS = 20
+
+
+def phase7_placement(name, graph, start, dev, main_launches):
+    """The hot-vertex placement on one dataset at the paper's scale, from
+    phase 2's DiDiC map: a service with an exception table of 128 replays
+    the log, re-selects the table from its per-vertex traffic and replays
+    again; capacities 8 and 32 replay with the same traffic's top
+    vertices. Every replay is a main-path run."""
+    from repro_torch.core import metrics
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.partitioners import select_hot_vertices
+    from repro_torch.core.traffic import execute_ops, generate_ops
+    from repro_torch.skew_smoke import hot_mask
+
+    parts0 = start[0]
+    n_ops = N_OPS_GIS_DYNAMIC if name == "gis" else N_OPS
+    ops = generate_ops(graph, n_ops=n_ops, seed=0)
+    svc = PartitionedGraphService(graph, 4, DidicConfig(k=4), device=dev,
+                                  exception_capacity=PLACEMENT_CAPACITY)
+    svc.partition_with(parts0.copy())
+    fg = 0
+    (base, base_s), counts = _counted(lambda: once(lambda: svc.run_ops(ops)), main_launches)
+    fg += counts["frontier_gather"]
+    sweep = {0: base}
+    seconds = {0: base_s}
+    for cap in (8, 32):
+        mask = hot_mask(base.per_vertex, cap)
+        (sweep[cap], seconds[cap]), counts = _counted(lambda: once(lambda: execute_ops(
+            graph, ops, parts0, 4, device=dev, replicated=mask)), main_launches)
+        fg += counts["frontier_gather"]
+    hot = svc.refresh_placement()
+    check(np.array_equal(hot, select_hot_vertices(base.per_vertex, PLACEMENT_CAPACITY))
+          and svc.placement.replica_epoch == 1,
+          f"{name}: refresh_placement picked the top {hot.size} vertices of the replay's traffic")
+    (sweep[128], seconds[128]), counts = _counted(lambda: once(lambda: svc.run_ops(ops)),
+                                                  main_launches)
+    fg += counts["frontier_gather"]
+    out = {"phase": 7, "dataset": name, "n_ops": n_ops, "sweep": {}}
+    for cap, res in sweep.items():
+        out["sweep"][str(cap)] = {
+            "T_G_percent": _pg(res), "global": int(res.per_op_global.sum()),
+            "load_cv": metrics.coefficient_of_variation(res.per_partition),
+            "replay_s": seconds[cap],
+        }
+        check(res.per_op_total.sum() == base.per_op_total.sum()
+              and res.per_partition.sum() == base.per_partition.sum()
+              and np.array_equal(res.per_vertex, base.per_vertex)
+              and _pg(res) <= _pg(base),
+              f"{name} capacity {cap}: totals conserved, T_G % {_pg(res):.4f} <= {_pg(base):.4f}")
+    out["frontier_gather_launches"] = fg
+    say(json.dumps(out))
+    say(f"phase 7: {name} T_G % / load CV at capacities 0, 8, 32, 128: " + "; ".join(
+        f"{v['T_G_percent']:.4f} / {v['load_cv']:.4f}" for v in out["sweep"].values()))
+    if name == "gis":
+        check(fg > 0, f"gis phase 7: the masked replays went through frontier_gather ({fg} launches)")
+        _oracle_check(graph, ops, parts0, dev, f"{name} capacity {PLACEMENT_CAPACITY}",
+                      replicated=svc.placement.replicated_mask())
+
+
+def phase7_skew(dev):
+    """``skew_smoke`` at the JAX package's own parameters, its gates fatal."""
+    from repro_torch import skew_smoke
+
+    rows, update = skew_smoke.skew_smoke(device=dev)
+    for row in rows:
+        say(f"phase 7: {row}")
+    say(json.dumps({"phase": 7, "skew": update}, sort_keys=True))
+    # The JAX package's figures from its own CPU run (benchmarks/BENCH_traffic.json, "skew").
+    reference = {"twitter": "441 -> 136 (0.6916)", "filesystem": "10709 -> 10572 (0.0128)"}
+    for name, ref in reference.items():
+        sw = update[name]["sweep"]
+        say(f"phase 7: skew {name} global traffic at capacity 0 -> 128 on the card: "
+            f"{sw['0']['global_traffic']:.0f} -> {sw['128']['global_traffic']:.0f} "
+            f"({update[name]['reduction_at_128']}); the JAX package's CPU run: {ref}")
+    check(update["twitter"]["reduction_at_128"] >= 0.20,
+          "skew_smoke: Twitter's global traffic falls >= 20 % at 128 replicas, filesystem "
+          "never rises > 1 %, scalar == batched at every capacity")
+
+
+def phase7_tables(dev, main_launches):
+    """The paper's nine tables at ``scale=0.01`` through the port's entry
+    point: every row name as the CPU parity test pins it, finite values,
+    DiDiC below random on every dataset and k."""
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.paper_tables import TABLES, PaperBench, row_names
+
+    cfg = PaperExperimentConfig(scale=TABLES_SCALE, didic_iterations=TABLES_DIDIC_ITERATIONS)
+    bench = PaperBench(cfg, device=dev)
+    (rows, tables_s), counts = _counted(lambda: once(bench.all_tables), main_launches)
+    for r in rows:
+        say(f"phase 7 table: {r.csv()}")
+    want = []
+    for key, fn in TABLES.items():
+        want += row_names(cfg, key) + [f"_timing/{fn}_s"]
+    check([r.name for r in rows] == want, f"paper tables: {len(rows)} rows, names as pinned")
+    check(all(np.isfinite(r.value) for r in rows), "paper tables: every value finite")
+    reductions = {r.name: r.value for r in rows
+                  if r.name.endswith("/didic/traffic_reduction_pct")}
+    check(len(reductions) == 6 and min(reductions.values()) > 0,
+          "paper tables: DiDiC below random on every dataset and k: "
+          + ", ".join(f"{n.split('/')[1]} k{n.split('/')[2][1:]} {v}" for n, v in reductions.items()))
+    check(counts["frontier_gather"] > 0,
+          f"paper tables: the GIS replays went through frontier_gather ({counts['frontier_gather']})")
+    say(json.dumps({"phase": 7, "tables_s": tables_s, "rows": len(rows),
+                    "frontier_gather_launches": counts["frontier_gather"]}))
+
+
 def bf16_gaps(got, want, tile: int = 64):
     """How far a bfloat16 attention output ``got [H, T, Dh]`` lies from
     ``want``, the same function computed in float32 and rounded to
@@ -1061,6 +1186,11 @@ def main() -> int:
         say(f"phase 6 {name} done at {time.perf_counter() - t_start:.1f} s")
     phase6_bell(gis_small, kernel_parts, dev, main_launches)
     say(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    for name, graph in graphs.items():
+        phase7_placement(name, graph, starts[name], dev, main_launches)
+    phase7_skew(dev)
+    phase7_tables(dev, main_launches)
+    say(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
     del graphs, starts, gis_small
     torch.cuda.empty_cache()
     phase4_din(dev, records, main_launches)
@@ -1070,7 +1200,7 @@ def main() -> int:
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
-        "phase 6): " + json.dumps(main_launches, sort_keys=True))
+        "phase 6, the replays and tables of phase 7): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

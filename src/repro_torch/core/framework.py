@@ -16,10 +16,17 @@ serving the thesis emulator's measurements and the dynamic experiments'
 cycle: apply dynamism (moves, and for the Insert workload new vertices and
 edges), maintain with DiDiC through the Migration-Scheduler, replay.
 
+The service holds a :class:`~repro_torch.core.placement.Placement`: the
+owner array (``parts``) plus a fixed-capacity exception table of hot
+vertices replicated read-only on every partition
+(``exception_capacity=``, 0 by default). Reads of a replicated vertex are
+local to the reader; writes (moves, inserts, migrations) resolve the owner
+and invalidate the vertex's replicas; maintenance pins the hot vertices;
+:meth:`PartitionedGraphService.refresh_placement` re-selects the table from
+the logger's per-vertex traffic, with hysteresis.
+
 The mesh engines, the fault plan, the write-ahead journal, retries and
-degraded mode, and the per-vertex traffic that selects hot vertices come
-with later slices. The placement's exception table has capacity 0, so
-``parts`` is the whole placement.
+degraded mode come with later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from repro_torch import resolve_device
 from repro_torch.core import metrics
 from repro_torch.core.didic import DidicConfig, DidicState, didic_partition, didic_refine
 from repro_torch.core.dynamism import DynamismLog, apply_dynamism, generate_dynamism
+from repro_torch.core.partitioners import select_hot_vertices
 from repro_torch.core.placement import Placement
 from repro_torch.core.traffic import OpLog, TrafficResult, execute_ops, generate_ops
 from repro_torch.graphs.structure import Graph
@@ -125,6 +133,9 @@ class RuntimeLogger:
     def reset(self) -> None:
         self.infos: List[InstanceInfo] = [InstanceInfo() for _ in range(self.k)]
         self._last_percent_global = 0.0
+        # Accumulated per-vertex served traffic, the hot-vertex selection
+        # signal. Growable: observations from a grown graph extend it.
+        self.vertex_traffic = np.zeros(0, dtype=np.int64)
 
     def observe_structure(self, graph: Graph, parts: np.ndarray) -> None:
         counts = metrics.partition_counts(graph, parts, self.k)
@@ -155,6 +166,13 @@ class RuntimeLogger:
         for i in range(self.k):
             self.infos[i].global_traffic += int(g[i])
             self.infos[i].local_traffic += int(served[i]) - int(g[i])
+        pv = np.asarray(result.per_vertex, dtype=np.int64)
+        if pv.shape[0] > self.vertex_traffic.shape[0]:
+            self.vertex_traffic = np.concatenate([
+                self.vertex_traffic,
+                np.zeros(pv.shape[0] - self.vertex_traffic.shape[0], np.int64),
+            ])
+        self.vertex_traffic[: pv.shape[0]] += pv
         self._last_percent_global = result.percent_global
 
     def percent_global(self) -> float:
@@ -272,11 +290,15 @@ class PartitionedGraphService:
         didic: Optional[DidicConfig] = None,
         *,
         device=None,
+        exception_capacity: int = 0,
     ):
         self.device = resolve_device(device)
         self.graph = graph
         self.k = k
-        self.placement = Placement(owner=np.zeros(graph.n_nodes, dtype=np.int32))
+        self.placement = Placement(
+            owner=np.zeros(graph.n_nodes, dtype=np.int32),
+            capacity=int(exception_capacity),
+        )
         self.logger = RuntimeLogger(k)
         self.runtime = RuntimePartitioner(didic or DidicConfig(k=k), device=self.device)
         self.scheduler = MigrationScheduler()
@@ -294,6 +316,20 @@ class PartitionedGraphService:
     @parts.setter
     def parts(self, value: np.ndarray) -> None:
         self.placement.replace_owner(np.asarray(value))
+
+    def refresh_placement(self, hysteresis: float = 1.25) -> np.ndarray:
+        """Re-select the exception table from the accumulated per-vertex
+        traffic (promotion with hysteresis, see
+        :func:`~repro_torch.core.partitioners.select_hot_vertices`) and
+        return the new hot vertices. No-op at capacity 0."""
+        if self.placement.capacity == 0:
+            return self.placement.hot_vertices()
+        hot = select_hot_vertices(
+            self.logger.vertex_traffic, self.placement.capacity,
+            current_hot=self.placement.hot_vertices(), hysteresis=hysteresis,
+        )
+        self.placement.set_hot(hot)
+        return self.placement.hot_vertices()
 
     def partition_with(self, parts: np.ndarray) -> "PartitionedGraphService":
         if parts.shape[0] != self.graph.n_nodes:
@@ -346,9 +382,11 @@ class PartitionedGraphService:
 
     def run_ops(self, ops: OpLog, engine: str = "batched") -> TrafficResult:
         """Replay an evaluation log: ``batched`` (the device engine) or
-        ``scalar`` (the host oracle); both give identical counters."""
+        ``scalar`` (the host oracle); both give identical counters. Steps
+        into the placement's replicated vertices are local reads."""
         result = execute_ops(self.graph, ops, self.parts, self.k, engine=engine,
-                             device=self.device)
+                             device=self.device,
+                             replicated=self.placement.replicated_mask())
         self.logger.observe_traffic(result)
         return result
 

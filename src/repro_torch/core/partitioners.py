@@ -13,6 +13,11 @@ Twin of ``repro.core.partitioners`` (host numpy, identical results):
 
 No hardcoded method exists for Twitter (paper: "no hardcoded partitioning
 was performed" — insufficient domain knowledge).
+
+``select_hot_vertices`` is the placement's exception-table policy: it turns
+the :class:`~repro_torch.core.framework.RuntimeLogger`'s accumulated
+per-vertex traffic into the set of vertices worth replicating read-only on
+every partition (the skew regime of paper §6.5).
 """
 
 from __future__ import annotations
@@ -30,7 +35,57 @@ __all__ = [
     "hardcoded_filesystem",
     "hardcoded_gis",
     "hardcoded_for",
+    "select_hot_vertices",
 ]
+
+
+def select_hot_vertices(
+    vertex_traffic: np.ndarray,
+    capacity: int,
+    current_hot: Optional[np.ndarray] = None,
+    hysteresis: float = 1.25,
+) -> np.ndarray:
+    """Choose up to ``capacity`` vertices to replicate, with promotion
+    hysteresis against incumbents.
+
+    The top-``capacity`` vertices by accumulated traffic are the
+    candidates; an incumbent (a vertex already in ``current_hot``) keeps
+    its slot unless a challenger's traffic exceeds ``hysteresis ×`` the
+    incumbent's — replication churn invalidates replicas and perturbs the
+    measurement, so a marginal ranking flip must not thrash the table.
+    Deterministic: ties break on the lower vertex id, and the result is
+    sorted ascending. Zero-traffic vertices are never promoted.
+    """
+    traffic = np.asarray(vertex_traffic, dtype=np.int64)
+    capacity = int(capacity)
+    if capacity == 0 or traffic.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    # Stable top-capacity by (-traffic, id): lexsort's last key is primary.
+    ids = np.arange(traffic.shape[0], dtype=np.int64)
+    order = np.lexsort((ids, -traffic))
+    candidates = order[:capacity]
+    candidates = candidates[traffic[candidates] > 0]
+    if current_hot is None or len(current_hot) == 0:
+        return np.sort(candidates)
+    incumbents = np.asarray(current_hot, dtype=np.int64)
+    incumbents = incumbents[(incumbents >= 0) & (incumbents < traffic.shape[0])]
+    # Greedy with hysteresis: incumbents hold their slots; challengers
+    # (strongest first) take free slots outright, but displace the
+    # weakest remaining incumbent only by beating it ``hysteresis×``.
+    table = sorted(
+        (int(v) for v in np.unique(incumbents)),
+        key=lambda v: (int(traffic[v]), v),
+    )  # ascending traffic: table[0] is the weakest incumbent
+    challengers = [int(c) for c in candidates if int(c) not in set(table)]
+    challengers.sort(key=lambda v: (-int(traffic[v]), v))
+    accepted = []
+    for c in challengers:
+        if len(table) + len(accepted) < capacity:
+            accepted.append(c)
+        elif table and int(traffic[c]) > int(traffic[table[0]]) * hysteresis:
+            table.pop(0)
+            accepted.append(c)
+    return np.asarray(sorted(table + accepted), dtype=np.int64)
 
 
 def random_partition(n_nodes: int, k: int, seed: int = 0) -> np.ndarray:

@@ -38,9 +38,11 @@ Shared semantics (both engines):
   truncated to the ``max_expansions`` lex-smallest entries. Each u ∈ S
   contributes deg(u) traversal steps (its edge expansions).
 
-The placement's exception table has capacity 0 in this slice, so no
-replica routing appears here (a step's ``t_pg`` always books to the
-receiver's partition).
+With a placement exception table (``replicated=``, a bool[N] mask of hot
+vertices replicated read-only on every partition), a step ``u → v`` into a
+replicated ``v`` is a local read: it counts no global traffic and its
+``t_pg`` books to the reader's partition ``parts[u]``. ``None`` (the empty
+table) is the plain path.
 """
 
 from __future__ import annotations
@@ -238,21 +240,37 @@ def _csr_from_edges(s: np.ndarray, r: np.ndarray, n_nodes: int) -> Tuple[np.ndar
 # Scalar oracle execution (one op at a time — the semantic reference)
 # ===========================================================================
 class _ScalarCounters:
-    def __init__(self, n_ops: int, k: int, n_nodes: int, t_l: int, t_pg: int):
+    def __init__(
+        self,
+        n_ops: int,
+        k: int,
+        n_nodes: int,
+        t_l: int,
+        t_pg: int,
+        replicated: Optional[np.ndarray] = None,
+    ):
         self.per_op_total = np.zeros(n_ops, dtype=np.int64)
         self.per_op_global = np.zeros(n_ops, dtype=np.int64)
         self.per_partition = np.zeros(k, dtype=np.int64)
         self.per_vertex = np.zeros(n_nodes, dtype=np.int64)
         self.t_l, self.t_pg = t_l, t_pg
+        self.replicated = replicated
 
     def step(self, i: int, u: int, v: int, parts: np.ndarray) -> None:
-        """One traversal step: op i expands edge u → v."""
+        """One traversal step: op i expands edge u → v.
+
+        A step into a replicated vertex is served from the local read-only
+        copy at ``parts[u]``: it is not global traffic, and its ``t_pg``
+        books to the reading partition. Per-vertex attribution is
+        unchanged, so ``v`` stays the hot vertex in the promotion signal.
+        """
         self.per_op_total[i] += self.t_l + self.t_pg
         pu, pv = parts[u], parts[v]
-        if pu != pv:
+        rep_v = self.replicated is not None and self.replicated[v]
+        if pu != pv and not rep_v:
             self.per_op_global[i] += 1
         self.per_partition[pu] += self.t_l
-        self.per_partition[pv] += self.t_pg
+        self.per_partition[pu if rep_v else pv] += self.t_pg
         self.per_vertex[u] += self.t_l
         self.per_vertex[v] += self.t_pg
 
@@ -267,12 +285,13 @@ def _execute_bfs_scalar(
     ops: OpLog,
     parts: np.ndarray,
     k: int,
+    replicated: Optional[np.ndarray] = None,
 ) -> TrafficResult:
     """Per-op level-by-level BFS down the filtered filesystem tree."""
     s, r = _filtered_children_csr_edges(graph)
     indptr, indices = _csr_from_edges(s, r, graph.n_nodes)
     max_levels = int(graph.node_attrs["depth"].max()) + 2
-    ctr = _ScalarCounters(ops.n_ops, k, graph.n_nodes, ops.t_l, ops.t_pg)
+    ctr = _ScalarCounters(ops.n_ops, k, graph.n_nodes, ops.t_l, ops.t_pg, replicated)
     for i in range(ops.n_ops):
         end = int(ops.ends[i])
         frontier = [int(ops.starts[i])]
@@ -297,10 +316,11 @@ def _execute_twitter_scalar(
     ops: OpLog,
     parts: np.ndarray,
     k: int,
+    replicated: Optional[np.ndarray] = None,
 ) -> TrafficResult:
     """Per-op 2-hop friend-of-a-friend expansion with path multiplicity."""
     indptr, indices, _ = graph.csr
-    ctr = _ScalarCounters(ops.n_ops, k, graph.n_nodes, ops.t_l, ops.t_pg)
+    ctr = _ScalarCounters(ops.n_ops, k, graph.n_nodes, ops.t_l, ops.t_pg, replicated)
     for i in range(ops.n_ops):
         frontier = [int(ops.starts[i])]
         for _hop in range(2):
@@ -320,6 +340,7 @@ def _execute_gis_scalar(
     parts: np.ndarray,
     k: int,
     max_expansions: int = 50_000,
+    replicated: Optional[np.ndarray] = None,
 ) -> TrafficResult:
     """Per-op heapq shortest paths + A*-expansion-set accounting.
 
@@ -335,7 +356,7 @@ def _execute_gis_scalar(
     weights = weights.astype(np.float32)
     lon = graph.node_attrs["lon"].astype(np.float32)
     lat = graph.node_attrs["lat"].astype(np.float32)
-    ctr = _ScalarCounters(ops.n_ops, k, graph.n_nodes, ops.t_l, ops.t_pg)
+    ctr = _ScalarCounters(ops.n_ops, k, graph.n_nodes, ops.t_l, ops.t_pg, replicated)
 
     for i in range(ops.n_ops):
         src, dst = int(ops.starts[i]), int(ops.ends[i])
@@ -385,13 +406,14 @@ def _execute_scalar(
     ops: OpLog,
     parts: np.ndarray,
     k: int,
+    replicated: Optional[np.ndarray] = None,
 ) -> TrafficResult:
     if ops.pattern == "filesystem":
-        return _execute_bfs_scalar(graph, ops, parts, k)
+        return _execute_bfs_scalar(graph, ops, parts, k, replicated=replicated)
     if ops.pattern in ("gis_short", "gis_long"):
-        return _execute_gis_scalar(graph, ops, parts, k)
+        return _execute_gis_scalar(graph, ops, parts, k, replicated=replicated)
     if ops.pattern == "twitter":
-        return _execute_twitter_scalar(graph, ops, parts, k)
+        return _execute_twitter_scalar(graph, ops, parts, k, replicated=replicated)
     raise ValueError(f"unknown pattern {ops.pattern!r}")
 
 
@@ -405,19 +427,27 @@ def execute_ops(
     k: Optional[int] = None,
     engine: str = "batched",
     device=None,
+    replicated: Optional[np.ndarray] = None,
 ) -> TrafficResult:
     """Run an evaluation log against a partitioning and measure traffic.
 
     ``engine``: ``"batched"`` (the PyTorch engine on ``device``; ``None``
     means CUDA) or ``"scalar"`` (the NumPy oracle, host only). Both
     produce identical counters.
+
+    ``replicated`` is an optional bool[N] mask of hot vertices replicated
+    read-only on every partition (``Placement.replicated_mask()``): steps
+    into them are local reads. ``None`` (the empty exception table) is the
+    plain path on all four counters.
     """
     k = int(parts.max()) + 1 if k is None else k
     parts = np.asarray(parts, dtype=np.int64)
+    if replicated is not None:
+        replicated = np.asarray(replicated, dtype=bool)
     if engine == "scalar":
-        return _execute_scalar(graph, ops, parts, k)
+        return _execute_scalar(graph, ops, parts, k, replicated=replicated)
     if engine == "batched":
         from repro_torch.core.traffic_batched import execute_ops_batched
 
-        return execute_ops_batched(graph, ops, parts, k, device=device)
+        return execute_ops_batched(graph, ops, parts, k, device=device, replicated=replicated)
     raise ValueError(f"unknown engine {engine!r}")

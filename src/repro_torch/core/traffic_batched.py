@@ -631,10 +631,20 @@ class BatchedTrafficEngine:
         return per_op_edges, per_op_cross, tm64
 
     # ------------------------------------------------------------------ run
-    def cross_degree(self, parts: np.ndarray) -> np.ndarray:
-        """Per-vertex count of out-edges crossing a partition boundary."""
+    def cross_degree(
+        self, parts: np.ndarray, replicated: Optional[np.ndarray] = None
+    ) -> np.ndarray:
+        """Per-vertex count of out-edges crossing a partition boundary.
+
+        An edge into a replicated vertex is served from the local replica,
+        so it never crosses: ``cross(u, v) = (parts[u] != parts[v]) and not
+        replicated[v]``. The mask is applied here, on the host; the device
+        solves read ``cross_deg`` as a plain input and do not change.
+        """
         parts = np.asarray(parts, dtype=np.int64)
         crossing = parts[self.s] != parts[self.r]
+        if replicated is not None:
+            crossing &= ~np.asarray(replicated, dtype=bool)[self.r]
         return np.bincount(self.s, weights=crossing, minlength=self.n_nodes).astype(np.int64)
 
     def finalize(
@@ -646,8 +656,15 @@ class BatchedTrafficEngine:
         k: int,
         t_l: int,
         t_pg: int,
+        replicated: Optional[np.ndarray] = None,
     ):
-        """Aggregate counters from the total frontier mass (host, int64)."""
+        """Aggregate counters from the total frontier mass (host, int64).
+
+        With ``replicated``, the ``t_pg`` of a step into a replicated vertex
+        books to the reading partition (the replica is local), while the
+        per-vertex attribution does not change: totals are conserved and
+        only partition attribution moves.
+        """
         parts = np.asarray(parts, dtype=np.int64)
         deg64 = self.deg.astype(np.int64)
         pv = t_l * deg64 * tm64
@@ -655,7 +672,18 @@ class BatchedTrafficEngine:
         np.add.at(tpg_push, self.r, tm64[self.s])
         pv += t_pg * tpg_push
         per_partition = np.zeros(k, dtype=np.int64)
-        np.add.at(per_partition, parts, pv)
+        if replicated is None:
+            np.add.at(per_partition, parts, pv)
+        else:
+            rep = np.asarray(replicated, dtype=bool)
+            # t_l books to the sender's partition; t_pg to the receiver's
+            # unless the receiver is replicated, then back to the sender.
+            rep_out_deg = np.bincount(
+                self.s, weights=rep[self.r], minlength=self.n_nodes
+            ).astype(np.int64)
+            sender_side = (t_l * deg64 + t_pg * rep_out_deg) * tm64
+            receiver_side = t_pg * np.where(rep, 0, tpg_push)
+            np.add.at(per_partition, parts, sender_side + receiver_side)
         return _t.TrafficResult(
             per_op_total=edges * (t_l + t_pg),
             per_op_global=cross,
@@ -663,14 +691,23 @@ class BatchedTrafficEngine:
             per_vertex=pv,
         )
 
-    def run(self, ops, parts: np.ndarray, k: int, t_l: int, t_pg: int):
+    def run(
+        self,
+        ops,
+        parts: np.ndarray,
+        k: int,
+        t_l: int,
+        t_pg: int,
+        replicated: Optional[np.ndarray] = None,
+    ):
         parts = np.asarray(parts, dtype=np.int64)
-        cross_deg = self.cross_degree(parts)
+        cross_deg = self.cross_degree(parts, replicated=replicated)
         if self.kind == "bfs":
             edges, cross, tm64 = self._run_bfs(ops, cross_deg)
         else:
             edges, cross, tm64 = self._run_sssp(ops, cross_deg)
-        return self.finalize(edges, cross, tm64, parts, k, t_l, t_pg)
+        return self.finalize(edges, cross, tm64, parts, k, t_l, t_pg,
+                             replicated=replicated)
 
 
 def get_engine(
@@ -704,9 +741,11 @@ def execute_ops_batched(
     max_expansions: Optional[int] = None,
     delta_scale: Optional[float] = None,
     device=None,
+    replicated: Optional[np.ndarray] = None,
 ):
     engine = get_engine(
         graph, ops.pattern, chunk=chunk, max_expansions=max_expansions,
         delta_scale=delta_scale, device=device,
     )
-    return engine.run(ops, parts, k, t_l=ops.t_l, t_pg=ops.t_pg)
+    return engine.run(ops, parts, k, t_l=ops.t_l, t_pg=ops.t_pg,
+                      replicated=replicated)
