@@ -46,15 +46,30 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    ops; (b) ``repro_torch.skew_smoke`` at the JAX package's parameters,
    with its gates; (c) ``repro_torch.paper_tables`` at ``scale=0.01``,
    DiDiC 20 iterations: every table's row names, finite values, and DiDiC
-   below random on every dataset.
+   below random on every dataset;
+8. the fault layer, run after phase 7 at ``scale=1.0`` from phase 2's
+   DiDiC maps and states: (a) on each dataset, ``run_with_recovery`` (5
+   slices of 5 %, 20 % inserts, maintenance every 3rd slice, snapshots
+   every 2nd round-tripped through their bytes) under a pre-commit crash,
+   two maintenance timeouts and a post-commit crash, bit-exact against an
+   uninterrupted run, with 2 recoveries, 2 retries and a peak device memory
+   within 10 % of the uninterrupted run's; (b) the online server on GIS
+   (48 ``gis_short``/``gis_long`` requests under each arrival process, 8-slot
+   batches, a 64-op queue, background DiDiC every 8 ticks, SLOs of 8 and 16
+   ticks), a clean leg and a leg with an admit and a commit crash, equal to
+   each other and to the offline replay of their epochs; (c) the same
+   with 128 replicas on filesystem plus a parking vertex, ``filesystem``
+   and ``twitter`` clients with ``skewed_hot`` arrivals.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
 the granite forward call of phase 5 (``flash_attention``), every replay
-and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``) and
-phase 7's replays and tables (``frontier_gather``). The launch
-counts are set to 0 just before each of them and read just after. Each
+and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
+phase 7's replays and tables and phase 8's uninterrupted, recovered and
+online runs (``frontier_gather``); phase 8's offline replays, the reference
+the online runs are checked against, are read apart and not counted. The
+launch counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
 back to back, where the host enqueues the next call while the card runs.
@@ -864,6 +879,222 @@ def phase7_tables(dev, main_launches):
                     "frontier_gather_launches": counts["frontier_gather"]}))
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+# Cut for the script's time (PERF.md §4): 5 slices, not 6 (the fewest the
+# fault plan needs), and 48 online requests, not 256 (enough ticks for a
+# background DiDiC round to commit, so the legs serve more than one epoch).
+RECOVERY_RUN = dict(n_slices=5, amount=0.05, maintain_every=3, insert_rate=0.2)
+ONLINE_REQUESTS = 48
+GIS_CLASSES = ("gis_short", "gis_long")
+SLO = {"gis_short": 8, "gis_long": 16}
+
+
+def _recovery_plan():
+    from repro_torch.core.fault import FaultPlan
+
+    return (FaultPlan().crash(1, site="apply:pre_commit").timeout_maintenance(2, times=2)
+            .crash(4, site="apply:post_commit"))
+
+
+def _online_plan():
+    from repro_torch.core.fault import FaultPlan
+
+    return FaultPlan().crash(3, site="serve:admit").crash(5, site="serve:commit")
+
+
+def _served(res):
+    """An online result's counters in ``offline_replay``'s shape."""
+    return res.per_op, res.per_partition, res.per_vertex
+
+
+def _served_equal(a, b) -> bool:
+    """Equal per-op, per-partition and per-vertex counters of two
+    ``(per_op, per_partition, per_vertex)`` triples."""
+    return (a[0].keys() == b[0].keys() and all(np.array_equal(a[0][c], b[0][c]) for c in a[0])
+            and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2]))
+
+
+def phase8_recovery(name, graph, start, dev, main_launches):
+    """Crash recovery on one dataset at the paper's scale, from phase 2's
+    DiDiC map and state: ``run_with_recovery`` (snapshots every 2 slices,
+    each round-tripped through its bytes) under a pre-commit crash, two
+    maintenance timeouts and a post-commit crash, against an uninterrupted
+    run of the same slices. Both runs are main-path runs."""
+    import gc
+
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.fault import RetryPolicy
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.recovery import run_with_recovery
+    from repro_torch.core.traffic import generate_ops
+
+    parts0, state0, _ = start
+    cfg = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS)
+    config = cfg.didic(name, 4)
+    ops = generate_ops(graph, n_ops=cfg.n_ops_gis if name == "gis" else cfg.n_ops, seed=0)
+    loggers = []  # host-only, so a dead runtime's device memory is not held
+
+    def make():
+        svc = PartitionedGraphService(graph, 4, config, device=dev)
+        svc.runtime.state = state0
+        svc.partition_with(parts0.copy())
+        loggers.append(svc.logger)
+        return DynamicExperimentRuntime(svc, "least_traffic", seed=0)
+
+    base, got = {}, {}
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    (ref, ref_s), counts = _counted(lambda: once(lambda: make().run(
+        ops, on_slice=lambda i, r: base.__setitem__(i, r), **RECOVERY_RUN)), main_launches)
+    ref_peak = torch.cuda.max_memory_allocated()
+    fg = counts["frontier_gather"]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ((out, stats), rec_s), counts = _counted(lambda: once(lambda: run_with_recovery(
+        make, graph, ops, fault_plan=_recovery_plan(), retry_policy=RetryPolicy(),
+        snapshot_every=2, on_slice=lambda i, r: got.__setitem__(i, r), **RECOVERY_RUN)),
+        main_launches)
+    rec_peak = torch.cuda.max_memory_allocated()
+    fg += counts["frontier_gather"]
+    health = loggers[-1].health_report()
+    n = RECOVERY_RUN["n_slices"]
+    say(json.dumps({
+        "phase": 8, "dataset": name, "recovery": {
+            "n_ops": ops.n_ops, "uninterrupted_s": ref_s, "recovered_s": rec_s,
+            "recoveries": stats.recoveries, "resumed_from": stats.resumed_from,
+            "recovery_time_s": stats.recovery_time_s, "restore_s": stats.restore_s,
+            "snapshot_bytes": stats.snapshot_bytes, "capture_s": stats.capture_s,
+            "journal_rolled_back": stats.journal_rolled_back,
+            "journal_replayed": stats.journal_replayed,
+            "maintenance_retries": health["maintenance_retries"],
+            "peak_device_bytes": [ref_peak, rec_peak],
+            "T_G_percent": [_pg(base[i]) for i in range(n)],
+            "grown_vertices": int(sum(r.inserted for r in out.records)),
+            "frontier_gather_launches": fg,
+        }}))
+    check(stats.recoveries == health["recoveries"] == 2 and stats.journal_rolled_back >= 1
+          and stats.journal_replayed >= 1 and health["maintenance_retries"] == 2,
+          f"{name} recovery: 2 recoveries (resumed at {stats.resumed_from}), "
+          f"{stats.journal_rolled_back} journal entries rolled back, {stats.journal_replayed} "
+          f"replayed, 2 maintenance retries")
+    check(all(_exact(base[i], got[i]) for i in range(n))
+          and [vars(r) for r in out.records] == [vars(r) for r in ref.records]
+          and np.array_equal(out.parts, ref.parts),
+          f"{name} recovery: all four counters equal the uninterrupted run's on each of {n} "
+          f"slices, with equal records and final map")
+    check(rec_peak <= 1.1 * ref_peak,
+          f"{name} recovery: peak device memory {rec_peak} B within 10 % of the "
+          f"uninterrupted run's {ref_peak} B")
+    if name == "gis":
+        check(fg > 0, f"gis phase 8 recovery: the replays went through frontier_gather ({fg} launches)")
+
+
+def _online_leg(svc, graph, classes, process, plan, dev, main_launches, maintenance=True):
+    """Serve ``ONLINE_REQUESTS`` arrivals of ``classes`` on ``svc`` under
+    ``plan``, then replay its epochs offline. Serving is the main-path run;
+    the offline replay is the reference it is checked against, so its
+    launches are read apart and not counted as main path. Returns the
+    result, the serving seconds, the offline counters and the serving's and
+    the offline replay's ``frontier_gather`` launches."""
+    from repro_torch.core.online import (BackgroundMaintenance, OnlineServer, make_arrival_stream,
+                                         offline_replay)
+
+    arrivals, t_counts = make_arrival_stream(graph, classes, ONLINE_REQUESTS, seed=0, process=process)
+    svc.fault_plan = plan
+    server = OnlineServer(svc, batch_slots=8, queue_limit=64,
+                          maintenance=BackgroundMaintenance(svc, every=8) if maintenance else None,
+                          slo=SLO if classes == GIS_CLASSES else None)
+    server.submit_stream(arrivals, t_counts)
+    (res, seconds), counts = _counted(lambda: once(server.run), main_launches)
+    off, offline_counts = _counted(
+        lambda: offline_replay(graph, res.epochs, 4, t_counts, device=dev), {})
+    return res, seconds, off, counts["frontier_gather"], offline_counts["frontier_gather"]
+
+
+def phase8_online(graph, start, dev, main_launches):
+    """The online server on GIS at the paper's scale, from phase 2's DiDiC
+    map and state: ``gis_short``/``gis_long`` clients under each arrival
+    process, 8-slot batches, a 64-op queue, background DiDiC rounds every 8
+    ticks and SLOs of 8 and 16 ticks; a clean leg and a leg with an admit
+    and a commit crash, each equal to the offline replay of its epochs."""
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core.framework import PartitionedGraphService
+
+    parts0, state0, _ = start
+    config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic("gis", 4)
+    fg = 0
+    for process in ("uniform", "bursty", "skewed_hot"):
+        legs = {}
+        for leg, plan in (("clean", None), ("crash", _online_plan())):
+            svc = PartitionedGraphService(graph, 4, config, device=dev)
+            svc.runtime.state = state0
+            svc.partition_with(parts0.copy())
+            res, seconds, off, n, n_off = _online_leg(svc, graph, GIS_CLASSES, process, plan,
+                                                      dev, main_launches)
+            fg += n
+            legs[leg] = res
+            say(json.dumps({"phase": 8, "dataset": "gis", "online": process, "leg": leg,
+                            "ops": res.ops_served, "seconds": seconds,
+                            "ops_per_s": res.ops_served / seconds, "ticks": res.ticks,
+                            "batches": res.batches_served, "epochs": len(res.epochs),
+                            "latency": res.latency, "health": res.health,
+                            "frontier_gather_launches": n,
+                            "offline_frontier_gather_launches": n_off}))
+            check(res.ops_served == ONLINE_REQUESTS and len(res.epochs) >= 2
+                  and _served_equal(_served(res), off),
+                  f"gis online {process} {leg}: {res.ops_served} ops served over {res.ticks} ticks "
+                  f"and {len(res.epochs)} epochs (a DiDiC round migrated), equal to the offline "
+                  f"replay of its epochs")
+        clean, crash = legs["clean"], legs["crash"]
+        check(crash.health["recoveries"] == 2 and _served_equal(_served(crash), _served(clean))
+              and crash.latency == clean.latency and crash.ticks == clean.ticks,
+              f"gis online {process}: the crash leg (2 recoveries) equals the clean leg on every "
+              f"counter and the latency report")
+        say(f"phase 8: gis online {process}: "
+            + ", ".join(f"{c} wait p50/p99 {r['queue_wait_p50']}/{r['queue_wait_p99']} ticks"
+                        for c, r in clean.latency.items()))
+    check(fg > 0, f"gis phase 8 online: the replays went through frontier_gather ({fg} launches)")
+
+
+def phase8_replicas(graph, start, dev, main_launches):
+    """Online serving with replicas: the filesystem graph plus one parking
+    vertex (the Twitter class's inert pad), phase 2's map extended by it,
+    an exception table of 128 promoted by ``refresh_placement`` after a
+    priming replay; ``filesystem``/``twitter`` clients with ``skewed_hot``
+    arrivals, a clean and a crash leg, each equal to its offline replay."""
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.traffic import generate_ops
+
+    parked = graph.with_vertices(1)
+    parts = np.concatenate([start[0], np.zeros(1, np.int32)])
+    prime = generate_ops(parked, n_ops=N_OPS, seed=5)
+    legs = {}
+    for leg, plan in (("clean", None), ("crash", _online_plan())):
+        svc = PartitionedGraphService(parked, 4, DidicConfig(k=4), device=dev,
+                                      exception_capacity=PLACEMENT_CAPACITY)
+        svc.partition_with(parts)
+        _counted(lambda: svc.run_ops(prime), main_launches)
+        hot = svc.refresh_placement()
+        res, seconds, off, _, _ = _online_leg(svc, parked, ("filesystem", "twitter"), "skewed_hot", plan,
+                                           dev, main_launches, maintenance=False)
+        legs[leg] = res
+        say(json.dumps({"phase": 8, "dataset": "filesystem+1", "online": "skewed_hot", "leg": leg,
+                        "hot": int(hot.size), "ops": res.ops_served, "seconds": seconds,
+                        "ops_per_s": res.ops_served / seconds, "ticks": res.ticks,
+                        "latency": res.latency}))
+        check(hot.size > 0 and res.ops_served == ONLINE_REQUESTS
+              and _served_equal(_served(res), off),
+              f"filesystem+1 online with {hot.size} replicas, {leg}: equal to the offline replay "
+              f"of its epochs")
+    check(legs["crash"].health["recoveries"] == 2
+          and _served_equal(_served(legs["crash"]), _served(legs["clean"])),
+          "filesystem+1 online with replicas: the crash leg equals the clean leg")
+
+
 def bf16_gaps(got, want, tile: int = 64):
     """How far a bfloat16 attention output ``got [H, T, Dh]`` lies from
     ``want``, the same function computed in float32 and rounded to
@@ -1191,6 +1422,13 @@ def main() -> int:
     phase7_skew(dev)
     phase7_tables(dev, main_launches)
     say(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+    for name, graph in graphs.items():
+        phase8_recovery(name, graph, starts[name], dev, main_launches)
+        say(f"phase 8 {name} recovery done at {time.perf_counter() - t_start:.1f} s")
+    phase8_online(graphs["gis"], starts["gis"], dev, main_launches)
+    say(f"phase 8 online done at {time.perf_counter() - t_start:.1f} s")
+    phase8_replicas(graphs["filesystem"], starts["filesystem"], dev, main_launches)
+    say(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     del graphs, starts, gis_small
     torch.cuda.empty_cache()
     phase4_din(dev, records, main_launches)
@@ -1200,7 +1438,8 @@ def main() -> int:
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
-        "phase 6, the replays and tables of phase 7): " + json.dumps(main_launches, sort_keys=True))
+        "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
+        "of phase 8): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -14,9 +14,14 @@ maintenance (DiDiC on the card: the segment route, or ``bell_matmul`` with
 ``frontier_gather``). With ``insert_rate`` > 0 the graph grows every slice;
 each grown graph gets its own engines.
 
-The JAX package's mesh path (the insert policies as one ``lax.scan``,
-sharded replay, mesh DiDiC) and its fault-plan hooks come with later
-slices of the port.
+The runtime carries the fault layer's hooks: :meth:`begin` and
+:meth:`run_slice` tell an attached fault plan which slice runs, and
+``run_slice(log=)`` takes a journaled log in place of the partitioner's
+draw, so the recovery driver (:mod:`repro_torch.core.recovery`) can resume
+a fresh runtime at any slice boundary. The JAX package's mesh path (the
+insert policies as one ``lax.scan``, sharded replay, mesh DiDiC) and its
+delta-overlay store (``prepare_growth``) wait for the multi-device slice
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.dynamism import DynamismLog
 from repro_torch.core.framework import (
     InsertPartitioner,
     MigrationScheduler,
@@ -73,13 +79,17 @@ class DynamicExperimentRuntime:
         # The paper's Dynamic experiment migrates on a fixed interval, so
         # the default scheduler applies every planned move.
         self.scheduler = MigrationScheduler(min_move_fraction=0.0)
+        # Loop state, which a snapshot captures and a restore puts back.
         self._baseline: Optional[TrafficResult] = None
         self._result: Optional[TrafficResult] = None
         self._records: List[SliceRecord] = []
 
     def begin(self, ops: OpLog) -> TrafficResult:
         """Measure the baseline and arm the per-slice loop."""
-        self._baseline = self._result = self.service.run_ops(ops)
+        svc = self.service
+        if svc.fault_plan is not None:
+            svc.fault_plan.begin_slice(svc.fault_plan.BASELINE)
+        self._baseline = self._result = svc.run_ops(ops)
         self._records = []
         return self._baseline
 
@@ -92,15 +102,28 @@ class DynamicExperimentRuntime:
         iterations: int = 1,
         measure_damaged: bool = False,
         insert_rate: float = 0.0,
+        log: Optional[DynamismLog] = None,
     ) -> Tuple[SliceRecord, TrafficResult]:
         """Run one slice of the cycle: dynamism → maintenance → replay, the
         dynamism drawn from the insert partitioner's next stream and fed
-        the latest replay's per-vertex traffic."""
+        the latest replay's per-vertex traffic.
+
+        ``log`` stands in for the draw (the recovery driver passes a
+        journal-committed log when it resumes past a post-commit crash);
+        the partitioner still advances one draw, so later slices draw what
+        an uninterrupted run draws. A crash mid-slice leaves the loop state
+        as it was, so re-running slice ``i`` after a restore reproduces it.
+        """
         svc = self.service
-        log = self.insert.allocate(
-            svc.parts, amount, vertex_traffic=self._result.per_vertex,
-            insert_rate=insert_rate, graph=svc.graph,
-        )
+        if svc.fault_plan is not None:
+            svc.fault_plan.begin_slice(i)
+        if log is None:
+            log = self.insert.allocate(
+                svc.parts, amount, vertex_traffic=self._result.per_vertex,
+                insert_rate=insert_rate, graph=svc.graph,
+            )
+        else:
+            self.insert.advance(1)
         svc.apply_dynamism(log)
         damaged_pg = svc.run_ops(ops).percent_global if measure_damaged else None
         maintained = (i + 1) % maintain_every == 0

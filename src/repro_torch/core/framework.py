@@ -6,7 +6,8 @@ the runtime:
 * :class:`InsertPartitioner`  — allocates entities to partitions at write
   time (random / fewest-vertices / least-traffic, §6.4),
 * :class:`RuntimeLogger`      — per-partition ``InstanceInfo`` metrics
-  (vertices, edges, local vs global traffic — §5.2),
+  (vertices, edges, local vs global traffic — §5.2), per-vertex traffic,
+  the service-health counters and the online front-end's latency samples,
 * :class:`RuntimePartitioner` — DiDiC, initial and maintenance passes,
 * :class:`MigrationScheduler` — decides when a maintained map is adopted
   and turns it into migration commands.
@@ -25,13 +26,23 @@ and invalidate the vertex's replicas; maintenance pins the hot vertices;
 :meth:`PartitionedGraphService.refresh_placement` re-selects the table from
 the logger's per-vertex traffic, with hysteresis.
 
-The mesh engines, the fault plan, the write-ahead journal, retries and
-degraded mode come with later slices.
+The fault layer is optional and off by default: an attached
+:class:`~repro_torch.core.fault.FaultPlan` fires crashes and maintenance
+timeouts at named sites, ``retry_policy`` bounds the maintenance retries,
+and a :class:`~repro_torch.core.recovery.DynamismJournal` makes
+:meth:`PartitionedGraphService.apply_dynamism` a write-ahead, exactly-once
+operation per log fingerprint. With none attached the service computes
+exactly what it did without them. The mesh engines, and with them degraded
+mode (a failed shard served by the shared engine), wait for the
+multi-device slice (ROADMAP A10); so does the ``apply:compact`` site, which
+needs the delta-overlay store.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time as _time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +51,7 @@ from repro_torch import resolve_device
 from repro_torch.core import metrics
 from repro_torch.core.didic import DidicConfig, DidicState, didic_partition, didic_refine
 from repro_torch.core.dynamism import DynamismLog, apply_dynamism, generate_dynamism
+from repro_torch.core.fault import MaintenanceTimeout, RetryPolicy, SimulatedCrash
 from repro_torch.core.partitioners import select_hot_vertices
 from repro_torch.core.placement import Placement
 from repro_torch.core.traffic import OpLog, TrafficResult, execute_ops, generate_ops
@@ -124,18 +136,41 @@ class InsertPartitioner:
 
 
 class RuntimeLogger:
-    """Runtime-Logging component: accumulates InstanceInfo per partition."""
+    """Runtime-Logging component: accumulates InstanceInfo per partition,
+    the service-health counters of the fault layer (maintenance retries,
+    recoveries) and the online front-end's latency samples (per op class,
+    queue wait and service time in ticks of the server's simulated clock,
+    never wall-clock reads)."""
 
     def __init__(self, k: int):
         self.k = k
         self.reset()
 
     def reset(self) -> None:
+        """Clear every measurement; the SLO budgets are configuration and
+        survive."""
         self.infos: List[InstanceInfo] = [InstanceInfo() for _ in range(self.k)]
         self._last_percent_global = 0.0
+        # Health counters, under the JAX package's names (a snapshot
+        # restores them by name). The port has no mesh, so nothing is served
+        # degraded, and no device-resident replay state, so
+        # ``resident_state_bytes`` stays 0.
+        self.degraded_replays = 0
+        self.degraded_ops = 0
+        self.maintenance_retries = 0
+        self.maintenance_retry_time_s = 0.0
+        self.recoveries = 0
+        self.recovery_time_s = 0.0
+        self.resident_state_bytes = 0
         # Accumulated per-vertex served traffic, the hot-vertex selection
         # signal. Growable: observations from a grown graph extend it.
         self.vertex_traffic = np.zeros(0, dtype=np.int64)
+        # Latency samples are Python ints (ticks), so long-horizon sums
+        # cannot wrap.
+        self.slo_violations = 0
+        self._latency: Dict[str, Dict[str, List[int]]] = {}
+        if not hasattr(self, "_slo_budgets"):
+            self._slo_budgets: Dict[str, int] = {}
 
     def observe_structure(self, graph: Graph, parts: np.ndarray) -> None:
         counts = metrics.partition_counts(graph, parts, self.k)
@@ -177,6 +212,84 @@ class RuntimeLogger:
 
     def percent_global(self) -> float:
         return self._last_percent_global
+
+    # -- health counters -------------------------------------------------------
+    def record_degraded(self, n_ops: int) -> None:
+        """One replay served through the degraded (shared-engine) path."""
+        self.degraded_replays += 1
+        self.degraded_ops += int(n_ops)
+
+    def record_maintenance_retries(self, retries: int, elapsed_s: float) -> None:
+        self.maintenance_retries += int(retries)
+        self.maintenance_retry_time_s += float(elapsed_s)
+
+    def record_recovery(self, elapsed_s: float) -> None:
+        self.recoveries += 1
+        self.recovery_time_s += float(elapsed_s)
+
+    # -- latency (online front-end) ------------------------------------------
+    def set_slo(self, op_class: str, budget_ticks: int) -> None:
+        """An op of ``op_class`` violates its SLO when its queue wait plus
+        service time exceeds ``budget_ticks``."""
+        self._slo_budgets[op_class] = int(budget_ticks)
+
+    def record_latency(self, op_class: str, queue_wait: int, service_time: int) -> None:
+        """Record one served op's latency sample (simulated-clock ticks)."""
+        wait, service = int(queue_wait), int(service_time)
+        bucket = self._latency.setdefault(op_class, {"wait": [], "service": []})
+        bucket["wait"].append(wait)
+        bucket["service"].append(service)
+        budget = self._slo_budgets.get(op_class)
+        if budget is not None and wait + service > budget:
+            self.slo_violations += 1
+
+    @staticmethod
+    def _percentile(samples: List[int], q: float) -> int:
+        """Nearest rank, ``sorted[ceil(q/100 * n) - 1]``: no interpolation,
+        so the percentile of one sample is that sample."""
+        n = len(samples)
+        if n == 0:
+            raise ValueError("percentile of empty sample set")
+        rank = max(1, -(-int(q * n) // 100))  # ceil(q*n/100), floor 1
+        return sorted(samples)[rank - 1]
+
+    def latency_report(self) -> Dict[str, Dict[str, float]]:
+        """Per-op-class latency summary on the simulated clock (ticks)."""
+        report: Dict[str, Dict[str, float]] = {}
+        for cls, bucket in sorted(self._latency.items()):
+            waits, services = bucket["wait"], bucket["service"]
+            totals = [w + s for w, s in zip(waits, services)]
+            n = len(waits)
+            report[cls] = {
+                "count": n,
+                "queue_wait_p50": self._percentile(waits, 50),
+                "queue_wait_p95": self._percentile(waits, 95),
+                "queue_wait_p99": self._percentile(waits, 99),
+                "queue_wait_max": max(waits),
+                "queue_wait_mean": sum(waits) / n,
+                "total_p50": self._percentile(totals, 50),
+                "total_p95": self._percentile(totals, 95),
+                "total_p99": self._percentile(totals, 99),
+                "total_max": max(totals),
+                "total_mean": sum(totals) / n,
+                "service_mean": sum(services) / n,
+            }
+            budget = self._slo_budgets.get(cls)
+            if budget is not None:
+                report[cls]["slo_budget"] = budget
+        return report
+
+    def health_report(self) -> Dict[str, float]:
+        return {
+            "degraded_replays": self.degraded_replays,
+            "degraded_ops": self.degraded_ops,
+            "maintenance_retries": self.maintenance_retries,
+            "maintenance_retry_time_s": self.maintenance_retry_time_s,
+            "recoveries": self.recoveries,
+            "recovery_time_s": self.recovery_time_s,
+            "slo_violations": self.slo_violations,
+            "resident_state_bytes": self.resident_state_bytes,
+        }
 
     def load_balance_cv(self) -> Dict[str, float]:
         return {
@@ -281,7 +394,10 @@ class MigrationScheduler:
 class PartitionedGraphService:
     """Emulator-style partitioned graph database (paper §5.3.2): drives the
     Static, Insert, Stress and Dynamic experiments on one device. Replays
-    and DiDiC run on ``device`` (``None`` means CUDA)."""
+    and DiDiC run on ``device`` (``None`` means CUDA).
+
+    ``fault_plan``, ``journal`` and ``retry_policy`` (all ``None`` by
+    default) attach the fault layer; see the module docstring."""
 
     def __init__(
         self,
@@ -299,6 +415,13 @@ class PartitionedGraphService:
             owner=np.zeros(graph.n_nodes, dtype=np.int32),
             capacity=int(exception_capacity),
         )
+        self.fault_plan = None
+        self.journal = None
+        self.retry_policy = None
+        # Fingerprints of journal-managed logs already applied, LRU-bounded:
+        # the idempotency window of journal replay after recovery.
+        self._applied_dynamism: "OrderedDict[str, None]" = OrderedDict()
+        self.max_applied_fingerprints = 256
         self.logger = RuntimeLogger(k)
         self.runtime = RuntimePartitioner(didic or DidicConfig(k=k), device=self.device)
         self.scheduler = MigrationScheduler()
@@ -341,18 +464,54 @@ class PartitionedGraphService:
     def partition_didic(self, seed: int = 0) -> "PartitionedGraphService":
         return self.partition_with(self.runtime.initial(self.graph, seed=seed))
 
+    def _maintain_attempt(self, fn):
+        """Run one maintenance computation under the fault plan.
+
+        An injected :class:`~repro_torch.core.fault.MaintenanceTimeout`
+        fires before the deterministic DiDiC computation, so a retried
+        attempt gives the uninterrupted result bit for bit. Retries back off
+        under ``retry_policy``; a spent budget raises
+        :class:`~repro_torch.core.fault.RecoveryDeadlineExceeded`. Retry
+        counts and time land in the logger's health counters.
+        """
+        if self.fault_plan is None:
+            return fn()
+        policy = self.retry_policy or RetryPolicy()
+        t0 = _time.perf_counter()
+        attempt = 0
+        while True:
+            try:
+                self.fault_plan.fire("maintain")
+                out = fn()
+            except MaintenanceTimeout:
+                attempt += 1
+                policy.wait(attempt, _time.perf_counter() - t0)
+                continue
+            if attempt:
+                self.logger.record_maintenance_retries(attempt, _time.perf_counter() - t0)
+            return out
+
     def maintain(self, iterations: int = 1) -> None:
-        self.parts = self.runtime.maintain(self.graph, self.parts, iterations=iterations,
-                                           pinned=self.placement.hot_vertices())
+        self.parts = self._maintain_attempt(
+            lambda: self.runtime.maintain(self.graph, self.parts, iterations=iterations,
+                                          pinned=self.placement.hot_vertices())
+        )
         self.logger.observe_structure(self.graph, self.parts)
 
-    def propose_maintenance(self, iterations: int = 1) -> np.ndarray:
-        """Run a maintenance refinement from the served map and return the
-        proposed map without adopting it. Advances ``runtime.state``; a
+    def propose_maintenance(self, iterations: int = 1,
+                            parts: Optional[np.ndarray] = None) -> np.ndarray:
+        """Run a maintenance refinement and return the proposed map without
+        adopting it. ``parts`` defaults to the served map; the online
+        front-end passes its background round's working copy, so a round
+        spread over ticks diffuses from its own intermediate map while the
+        service serves the committed one. Advances ``runtime.state``; a
         caller that may discard the proposal keeps the state from before
         and hands it to :meth:`commit_migration`."""
-        return self.runtime.maintain(self.graph, self.parts, iterations=iterations,
-                                     pinned=self.placement.hot_vertices())
+        src = self.parts if parts is None else parts
+        return self._maintain_attempt(
+            lambda: self.runtime.maintain(self.graph, src, iterations=iterations,
+                                          pinned=self.placement.hot_vertices())
+        )
 
     def commit_migration(self, scheduler: MigrationScheduler,
                          new_parts: np.ndarray, step: int,
@@ -383,12 +542,22 @@ class PartitionedGraphService:
     def run_ops(self, ops: OpLog, engine: str = "batched") -> TrafficResult:
         """Replay an evaluation log: ``batched`` (the device engine) or
         ``scalar`` (the host oracle); both give identical counters. Steps
-        into the placement's replicated vertices are local reads."""
+        into the placement's replicated vertices are local reads. An
+        attached fault plan fires ``replay`` first."""
+        if self.fault_plan is not None:
+            self.fault_plan.fire("replay")
         result = execute_ops(self.graph, ops, self.parts, self.k, engine=engine,
                              device=self.device,
                              replicated=self.placement.replicated_mask())
         self.logger.observe_traffic(result)
         return result
+
+    def mark_shard_failed(self, shard: int) -> None:
+        """Degraded mode needs mesh shards, which the port's one-device
+        service does not have."""
+        raise NotImplementedError(
+            f"mark_shard_failed({shard}): degraded mode needs a mesh, which comes with "
+            "the multi-device slice (ROADMAP, queue A item 10)")
 
     def make_ops(self, n_ops: int = 10_000, seed: int = 0, pattern: Optional[str] = None) -> OpLog:
         return generate_ops(self.graph, n_ops=n_ops, seed=seed, pattern=pattern)
@@ -403,11 +572,53 @@ class PartitionedGraphService:
         structural log replaces the graph by a new object (its engines and
         DiDiC products are built afresh on it); growth drops the carried
         diffusion state, which is per-vertex, so the next maintenance pass
-        seeds from the grown map. (The JAX package wraps this in its
-        write-ahead journal and fault plan, which come with a later slice.)
+        seeds from the grown map.
+
+        **Write-ahead journal.** With a
+        :class:`~repro_torch.core.recovery.DynamismJournal` attached the
+        application is exactly-once per log fingerprint: the intent (the
+        whole log) is journaled before any check, the commit mark after
+        every mutation, and a fingerprint this service already applied is a
+        no-op. A validation error marks the entry aborted; an injected
+        :class:`~repro_torch.core.fault.SimulatedCrash` leaves it pending
+        for the recovery driver to roll back.
         """
+        journal, plan = self.journal, self.fault_plan
+        fp = None
+        if journal is not None:
+            fp = log.fingerprint()
+            if fp in self._applied_dynamism:
+                self._applied_dynamism.move_to_end(fp)
+                return
+            journal.begin(log, fp)
+        try:
+            if plan is not None:
+                plan.fire("apply:pre_validate")
+            self._apply_dynamism_checked(log)
+        except SimulatedCrash:
+            # The process "dies" mid-apply: the entry stays pending.
+            raise
+        except BaseException:
+            # Any other error is a clean rejection.
+            if journal is not None:
+                journal.abort(fp)
+            raise
+        if journal is not None:
+            journal.commit(fp)
+            self._applied_dynamism[fp] = None
+            while len(self._applied_dynamism) > self.max_applied_fingerprints:
+                self._applied_dynamism.popitem(last=False)
+        if plan is not None:
+            plan.fire("apply:post_commit")
+
+    def _apply_dynamism_checked(self, log: DynamismLog) -> None:
+        """Validate, fire ``apply:pre_commit``, then commit (journal-agnostic)."""
+        plan = self.fault_plan
         if not log.structural:
-            self.parts = apply_dynamism(self.parts, log)
+            new_parts = apply_dynamism(self.parts, log)
+            if plan is not None:
+                plan.fire("apply:pre_commit")
+            self.parts = new_parts
             # A move is an ownership write: replicas of moved vertices drop.
             self.placement.invalidate(log.vertices)
             self.logger.observe_structure(self.graph, self.parts)
@@ -429,6 +640,8 @@ class PartitionedGraphService:
             )
         self._check_insert_admissible(log)
         new_parts = apply_dynamism(self.parts, log)
+        if plan is not None:
+            plan.fire("apply:pre_commit")
         # -- commit (nothing below may raise) --------------------------------
         self.parts = new_parts
         self.graph = new_graph

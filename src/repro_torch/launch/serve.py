@@ -2,14 +2,16 @@
 
 Twin of ``repro.launch.serve``: the continuous-batching LM engine on a
 reduced config of an LM arch (2 layers, d_model 128, 8 heads, the arch's
-kv-head ratio, vocab 512), or DIN scoring and retrieval at a reduced size
-(10,000 items, 100 categories, history 50), with the same sizes and seeds
-as the JAX launcher. Runs on the card unless ``--device cpu`` is given.
+kv-head ratio, vocab 512), DIN scoring and retrieval at a reduced size
+(10,000 items, 100 categories, history 50), or online graph serving
+(``--arch graph``: seeded clients over the partitioned GIS service at
+``scale=0.002``, fixed-slot admission batches, background DiDiC
+maintenance; no mesh), with the same sizes and seeds as the JAX launcher.
+Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch din --requests 4096 --device cpu
-
-``--arch graph`` (online graph serving) is not ported yet.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch graph --requests 256 --arrival bursty
 """
 
 from __future__ import annotations
@@ -99,17 +101,54 @@ def serve_din(n_requests: int, device=None) -> float:
     return n_requests / dt
 
 
+def serve_graph(n_requests: int, arrival: str, seed: int = 0, device=None):
+    """Online graph serving: seeded clients → admission loop → report.
+    Returns the server's :class:`~repro_torch.core.online.OnlineRunResult`."""
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.online import BackgroundMaintenance, OnlineServer, make_arrival_stream
+    from repro_torch.graphs import datasets
+
+    dev = resolve_device(device)
+    graph = datasets.load("gis", scale=0.002, seed=seed)
+    k = 4
+    svc = PartitionedGraphService(graph, k, DidicConfig(k=k, iterations=12),
+                                  device=dev).partition_didic(seed=seed)
+    arrivals, t_counts = make_arrival_stream(
+        graph, ("gis_short", "gis_long"), n_requests, seed=seed, process=arrival,
+    )
+    server = OnlineServer(
+        svc, batch_slots=8, queue_limit=64,
+        maintenance=BackgroundMaintenance(svc, every=8),
+        slo={"gis_short": 8, "gis_long": 16},
+    )
+    server.submit_stream(arrivals, t_counts)
+    t0 = time.perf_counter()
+    result = server.run()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"[serve] graph/{arrival}: {result.ops_served} ops in "
+          f"{result.batches_served} batches over {result.ticks} ticks, "
+          f"{result.ops_served / dt:.1f} ops/s ({dev.type})")
+    for cls, rep in result.latency.items():
+        print(f"[serve]   {cls}: wait p50={rep['queue_wait_p50']} "
+              f"p99={rep['queue_wait_p99']} ticks (count={rep['count']})")
+    print(f"[serve]   slo_violations={result.health['slo_violations']}")
+    return result
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--arrival", default="uniform", choices=("uniform", "bursty", "skewed_hot"),
+                    help="arrival process for --arch graph")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
     if args.arch == "graph":
-        raise NotImplementedError(
-            "--arch graph: online graph serving (core/online.py) is not ported yet "
-            "(ROADMAP, queue A item 9)")
+        serve_graph(args.requests, args.arrival, device=args.device)
+        return
     if args.arch not in ARCHS:
         raise NotImplementedError(
             f"--arch {args.arch}: the port runs {sorted(ARCHS)}; other configs are not "

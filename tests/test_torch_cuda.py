@@ -405,3 +405,45 @@ def test_cuda_dynamic_run_with_growth_matches_scalar_oracle():
     assert len(checked) == 3 and checked[0] > g.n_nodes and checked[2] > checked[0]
     assert sum(r.inserted for r in run.records) == svc.graph.n_nodes - g.n_nodes
     assert all(r.maintained and r.migrated >= 0 for r in run.records)
+
+
+@pytest.mark.cuda
+def test_cuda_gis_recovered_run_bit_exact():
+    """A GIS dynamic run on the card under a pre-commit crash, a maintenance
+    timeout and a post-commit crash equals the uninterrupted run on all four
+    counters of every slice, its replays through ``frontier_gather``."""
+    dev = _cuda_or_skip()
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.fault import FaultPlan, RetryPolicy
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.recovery import run_with_recovery
+    from repro_torch.core.traffic import generate_ops
+    from repro_torch.graphs import datasets
+
+    g = datasets.load("gis", scale=0.005)
+    ops = generate_ops(g, n_ops=60, seed=3)
+    parts0 = PartitionedGraphService(g, 4, DidicConfig(k=4, iterations=6),
+                                     device=dev).partition_didic(seed=0).parts
+
+    def make():
+        svc = PartitionedGraphService(g, 4, DidicConfig(k=4, iterations=6), device=dev)
+        return DynamicExperimentRuntime(svc.partition_with(parts0), "least_traffic", seed=7)
+
+    kw = dict(n_slices=5, amount=0.05, maintain_every=2, insert_rate=0.3)
+    base, got = {}, {}
+    before = kernels.launch_counts()["frontier_gather"]
+    ref = make().run(ops, on_slice=lambda i, r: base.__setitem__(i, r), **kw)
+    plan = (FaultPlan().crash(1, site="apply:pre_commit").timeout_maintenance(3)
+            .crash(3, site="apply:post_commit"))
+    out, stats = run_with_recovery(make, g, ops, fault_plan=plan, snapshot_every=2,
+                                   retry_policy=RetryPolicy(sleep=lambda s: None),
+                                   on_slice=lambda i, r: got.__setitem__(i, r), **kw)
+    assert kernels.launch_counts()["frontier_gather"] > before
+    assert stats.recoveries == 2
+    for i in range(kw["n_slices"]):
+        for field in ("per_op_total", "per_op_global", "per_partition", "per_vertex"):
+            np.testing.assert_array_equal(getattr(got[i], field), getattr(base[i], field),
+                                          err_msg=f"slice {i} {field}")
+    assert [vars(r) for r in out.records] == [vars(r) for r in ref.records]
+    np.testing.assert_array_equal(out.parts, ref.parts)
