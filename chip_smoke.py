@@ -16,7 +16,9 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    schedule, without it, and with the spill tail; ``flash_attention``'s
    previous (float32-pipe) design is timed beside its tensor-core kernel
    on the same bfloat16 inputs, and two ``bell_matmul`` launches on
-   DiDiC's matrix must give the same bits;
+   DiDiC's matrix must give the same bits; ``flash_attention`` also at the
+   other LM configs' prefill groups (Hq/Hkv 56/8, 32/4, 16/16; T 4,096, Dh
+   128, bf16) against its plain version and beside SDPA;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -59,12 +61,25 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    ticks), a clean leg and a leg with an admit and a commit crash, equal to
    each other and to the offline replay of their epochs; (c) the same
    with 128 replicas on filesystem plus a parking vertex, ``filesystem``
-   and ``twitter`` clients with ``skewed_hot`` arrivals.
+   and ``twitter`` clients with ``skewed_hot`` arrivals;
+9. after phase 5, the other four LM configs at full width and depth, random
+   bf16 weights, one at a time (each freed before the next is drawn, less
+   than 2 GB allocated before each draw): deepseek-moe-16b,
+   qwen3-moe-30b-a3b, deepseek-coder-33b, yi-34b, each as phase 5 runs
+   granite (parameter count; prefill against decode on 16 tokens, for an
+   MoE config at a capacity where nothing drops; forward and loss over
+   4,096 tokens with one ``flash_attention`` launch a layer on the
+   tensor-core route; the server twice); for the MoE configs also the
+   share of assignments dropped at capacity factor 1.25, DiDiC expert
+   placement from layer 0's and the last layer's router choices
+   (co-location against the naive groups, a balanced permutation), and
+   ``moe_fwd`` alone at ``[1, 4096, d_model]`` against its bound.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
-the granite forward call of phase 5 (``flash_attention``), every replay
+the granite forward call of phase 5 and the four forward calls of phase 9
+(``flash_attention``), every replay
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables and phase 8's uninterrupted, recovered and
 online runs (``frontier_gather``); phase 8's offline replays, the reference
@@ -82,6 +97,7 @@ code is not 0 and the last line is never printed. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -1183,6 +1199,56 @@ def phase1_flash(dev, records):
     }
 
 
+#: (Hq, Hkv) of the LM configs' prefill beyond granite's (32, 8): yi-34b and
+#: deepseek-coder-33b (group 7), qwen3-moe-30b-a3b (group 8, d_head 128 at
+#: d_model 2048), deepseek-moe-16b (group 1).
+FLASH_GROUPS = ((56, 8), (32, 4), (16, 16))
+
+
+def phase1_flash_groups(dev):
+    """``flash_attention`` at the other LM configs' prefill shapes (B=1,
+    T=4,096, Dh=128, bf16, causal) against its plain version, with the bar of
+    granite's shape (``bf16_gaps``), and its time beside SDPA's on the same
+    call."""
+    from repro_torch.kernels.flash_attention import KERNEL, attention_ref, flash_attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t, dh = 4096, 128
+    out = {}
+    for hq, hkv in FLASH_GROUPS:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q, k, v = (torch.randn((h, t, dh), generator=gen, device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        wgmma = KERNEL.route_launches.get("wgmma", 0)
+        got = flash_attention(q, k, v)
+        check(KERNEL.route_launches.get("wgmma", 0) == wgmma + 1,
+              f"flash_attention [{hq}x{t}x{dh}], kv {hkv} (group {hq // hkv}) took the tensor-core route")
+        want = attention_ref(q, k, v)
+        close, err, tile_gap = bf16_gaps(got, want)
+        check(close and tile_gap <= 2.0 ** -7,
+              f"flash_attention bf16 [{hq}x{t}x{dh}], kv {hkv}: within two bf16 steps (max abs {err:.3g}) and "
+              f"every (head, 64-query tile) within 2^-7 relative L2 (largest {tile_gap:.3g})")
+        del got, want
+        q4, k4, v4 = q[None], k[None], v[None]
+        ms = time_cuda(lambda: flash_attention(q, k, v))[0]
+        b2b_ms = time_cuda(lambda: flash_attention(q, k, v), inner=B2B)[0]
+        plain_ms = time_cuda(lambda: attention_ref(q, k, v), reps=5)[0]
+        library_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True))[0]
+        library_b2b_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True), inner=B2B)[0]
+        n_flops = 4.0 * hq * (t * (t + 1) // 2) * dh
+        n_bytes = (2 * hq + 2 * hkv) * t * dh * 2
+        b_ms, b_by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
+        say(f"phase 1: flash_attention bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernel (wgmma) {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s), {100 * b_ms / ms:.1f} % of the bound; "
+            f"{B2B} calls back to back: kernel {b2b_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_b2b_ms:.4f} ms")
+        out[f"{hq}/{hkv}"] = {"max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, "library_b2b_ms": library_b2b_ms,
+                              "bound_ms": b_ms, "bound_by": b_by}
+    say(json.dumps({"phase": 1, "flash_attention_groups": out}))
+
+
 def _embedding_bag_checks(dev, params, batch, records):
     """``embedding_bag`` at the JAX package's test shapes (within 1e-6) and
     at the main path's shape: DIN's item table, 262,144 bags of 100."""
@@ -1300,55 +1366,123 @@ def phase4_din(dev, records, main_launches):
     }))
 
 
-def phase5_lm(dev, main_launches):
-    """granite-3-8b at ``configs/granite_3_8b.FULL``, all 40 layers, random
-    bf16 weights: forward and loss over 4,096 tokens (the ``flash_attention``
-    main path), then the server on 8 requests, twice."""
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+class _RecordedRoutes:
+    """Within ``with``: every ``moe.route`` call's ``expert_idx`` is kept, in
+    call order (one a layer for a forward). Records only references, so the
+    forward it wraps waits on nothing."""
+
+    def __init__(self):
+        self.expert_idx = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = route = moe.route
+
+        def recording(p, xf, cfg):
+            out = route(p, xf, cfg)
+            self.expert_idx.append(out[2])
+            return out
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+        return False
+
+
+def _prefill_decode_gap(cfg, params, toks, dev):
+    """Whether the prefill logits over ``toks [1, T]`` are finite, and their
+    relative L2 gap to T ``serve_step`` decodes."""
+    from repro_torch.models import transformer as tf
+
+    t = toks.shape[1]
+    pre, _ = tf.forward(cfg, params, toks)
+    cache = tf.init_kv_cache(cfg, 1, t, device=dev)
+    dec = torch.stack([tf.serve_step(cfg, params, toks[:, i], cache, i)[0] for i in range(t)], dim=1)
+    return bool(torch.isfinite(pre).all()), float((pre.float() - dec.float()).norm() / dec.float().norm())
+
+
+def _lm_phase(cfg, phase, dev, main_launches):
+    """One LM config at full width and depth, random bf16 weights: draw the
+    parameters on the card, prefill against token-by-token decode on 16
+    tokens, the forward pass and loss over one 4,096-token sequence (the
+    ``flash_attention`` main path, one launch a layer; for an MoE config
+    each layer's router choices are recorded), then the server on 8
+    requests, twice. Returns the parameters, the router choices and the
+    phase's JSON record."""
     from repro_torch import kernels
-    from repro_torch.configs.granite_3_8b import FULL
     from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = FULL
+    name = cfg.name
+    torch.cuda.reset_peak_memory_stats()
     params, init_s = once(lambda: tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
-    n_params = sum(t.numel() for t in (params["embed"], params["lm_head"], params["ln_f"]["scale"]))
-    n_params += sum(t.numel() for leaves in params["layers"].values() for t in leaves.values())
-    check(n_params == cfg.param_count(), f"granite-3-8b: {n_params:,} parameters drawn on the card in {init_s:.2f} s")
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == cfg.param_count(), f"{name}: {n_params:,} parameters drawn on the card in {init_s:.2f} s "
+                                         f"(peak {init_peak / 1e9:.2f} GB)")
 
     with torch.no_grad():
         # Prefill (through flash_attention) against decode (the cache path)
         # on 16 tokens: the same causal function, so the logits agree to
-        # bf16 rounding over 40 layers.
+        # bf16 rounding over every layer. An MoE layer's capacity grows with
+        # the tokens of a call, so a prefill may drop assignments that a
+        # one-token decode keeps; the check runs at the capacity factor
+        # E / k, where no call drops, and the config's own gap is printed.
         toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 16)), device=dev)
-        pre, _ = tf.forward(cfg, params, toks)
-        cache = tf.init_kv_cache(cfg, 1, 16, device=dev)
-        dec = torch.stack([tf.serve_step(cfg, params, toks[:, t], cache, t)[0] for t in range(16)], dim=1)
-        rel = float((pre.float() - dec.float()).norm() / dec.float().norm())
-        check(bool(torch.isfinite(pre).all()) and rel < 0.1,
-              f"granite prefill == token-by-token decode on 16 tokens: relative L2 gap {rel:.4f} < 0.1")
+        same_fn = cfg
+        if cfg.moe:
+            same_fn = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        finite, rel = _prefill_decode_gap(same_fn, params, toks, dev)
+        what = " (capacity factor E / k: no assignment drops)" if cfg.moe else ""
+        check(finite and rel < 0.1,
+              f"{name} prefill == token-by-token decode on 16 tokens{what}: relative L2 gap {rel:.4f} < 0.1")
+        if cfg.moe:
+            with _RecordedRoutes() as prefill_routes:
+                _, own_rel = _prefill_decode_gap(cfg, params, toks, dev)
+            dropped = sum(_dropped_share(idx, cfg.moe) for idx in prefill_routes.expert_idx[:cfg.n_layers])
+            say(f"phase 9: {name} prefill against decode at capacity factor {cfg.moe.capacity_factor}: "
+                f"relative L2 gap {own_rel:.4f}; the 16-token prefill dropped "
+                f"{dropped * 16 * cfg.moe.top_k:.0f} assignments over the layers")
 
         batch = next(lm_token_stream(LmDataConfig(vocab=cfg.vocab, seq_len=4096, batch=1, seed=0)))
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        (logits, _), fwd_s = once(lambda: tf.forward(cfg, params, tokens))
+        with _RecordedRoutes() as routes:
+            (logits, aux), fwd_s = once(lambda: tf.forward(cfg, params, tokens))
         counts = kernels.launch_counts()
         _add_counts(main_launches, counts)
         fwd_peak = torch.cuda.max_memory_allocated()
-        routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+        flash_routes = dict(kernels.KERNELS["flash_attention"].route_launches)
         check(counts["flash_attention"] == cfg.n_layers,
-              f"granite forward over 4096 tokens launched flash_attention {counts['flash_attention']} times "
+              f"{name} forward over 4096 tokens launched flash_attention {counts['flash_attention']} times "
               f"(one a layer)")
-        check(routes == {"wgmma": cfg.n_layers},
-              f"every flash_attention launch of the granite forward took the tensor-core route ({routes})")
+        check(flash_routes == {"wgmma": cfg.n_layers},
+              f"every flash_attention launch of the {name} forward took the tensor-core route ({flash_routes})")
         check(tuple(logits.shape) == (1, 4096, cfg.vocab) and bool(torch.isfinite(logits).all()),
-              f"granite logits [1x4096x{cfg.vocab}] are finite")
+              f"{name} logits [1x4096x{cfg.vocab}] are finite")
+        aux = float(aux)
+        if cfg.moe:
+            check(len(routes.expert_idx) == cfg.n_layers and np.isfinite(aux) and aux >= 0,
+                  f"{name} forward: aux loss {aux:.5f} is finite and >= 0, router choices of "
+                  f"{len(routes.expert_idx)} layers recorded")
         del logits
         _, fwd2_s = once(lambda: tf.forward(cfg, params, tokens))
         loss, loss_s = once(lambda: float(tf.loss_fn(cfg, params, {"tokens": tokens, "labels": labels})))
-        check(np.isfinite(loss), f"granite loss {loss:.4f} is finite (ln V = {np.log(cfg.vocab):.4f})")
+        check(np.isfinite(loss), f"{name} loss {loss:.4f} is finite (ln V = {np.log(cfg.vocab):.4f})")
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, size=rng.integers(2, 8)) for _ in range(8)]
@@ -1362,22 +1496,163 @@ def phase5_lm(dev, main_launches):
         _, serve_s = once(eng.run_until_drained)
         flash = kernels.launch_counts()["flash_attention"]
         check(all(r.done and len(r.generated) == 16 for r in reqs),
-              f"granite server answered all 8 requests, 16 tokens each ({serve_s:.2f} s)")
+              f"{name} server answered all 8 requests, 16 tokens each ({serve_s:.2f} s)")
         check(flash == 0, "the server decodes through the cache path and launches no flash_attention")
         runs.append(([r.generated for r in reqs], serve_s))
         del eng
-    check(runs[0][0] == runs[1][0], "granite server: two runs give the same tokens")
+    check(runs[0][0] == runs[1][0], f"{name} server: two runs give the same tokens")
     n_tok = sum(len(g) for g in runs[0][0])
     n_prompt = sum(len(p) for p in prompts)
-    say(json.dumps({
-        "phase": 5, "model": cfg.name, "parameters": n_params, "init_s": init_s,
+    record = {
+        "phase": phase, "model": name, "parameters": n_params, "init_s": init_s,
+        "init_peak_device_bytes": init_peak,
         "forward_tokens": 4096, "forward_first_s": fwd_s, "forward_s": fwd2_s,
         "forward_tokens_per_s": 4096 / fwd2_s, "forward_peak_device_bytes": fwd_peak,
         "loss": loss, "loss_s": loss_s, "flash_attention_launches_per_forward": counts["flash_attention"],
         "serve_requests": 8, "serve_prompt_tokens": n_prompt, "serve_new_tokens": n_tok,
         "serve_s": [r[1] for r in runs], "serve_new_tokens_per_s": [n_tok / r[1] for r in runs],
         "prefill_decode_rel_gap": rel,
-    }))
+    }
+    if cfg.moe:
+        record["aux_loss"] = aux
+    return params, routes.expert_idx, record
+
+
+def phase5_lm(dev, main_launches):
+    """granite-3-8b at ``configs/granite_3_8b.FULL``, all 40 layers."""
+    from repro_torch.configs.granite_3_8b import FULL
+
+    params, _, record = _lm_phase(FULL, 5, dev, main_launches)
+    del params
+    say(json.dumps(record))
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+#: The other LM configs, smallest first: each is freed before the next is
+#: drawn, and yi-34b's weights and draws fill ~71 of the card's 80 GB.
+PHASE9_CONFIGS = ("deepseek_moe_16b", "qwen3_moe_30b_a3b", "deepseek_coder_33b", "yi_34b")
+PHASE9_RESIDENT_LIMIT = 2e9     # bytes still allocated before a config is drawn
+N_GROUPS = 4                    # expert groups of the placement (devices of an EP layout)
+
+
+def _dropped_share(expert_idx, cfg) -> float:
+    """Share of one layer's top-k assignments past their expert's capacity."""
+    from repro_torch.models.moe import capacity
+
+    n = expert_idx.shape[0]
+    counts = torch.bincount(expert_idx.reshape(-1), minlength=cfg.n_experts)
+    return float((counts - capacity(n, cfg)).clamp_min(0).sum()) / (n * cfg.top_k)
+
+
+def _placement(cfg, expert_idx, dev):
+    """DiDiC expert placement from one layer's router choices over the
+    4,096 tokens: co-location of DiDiC's groups, of the balanced groups its
+    permutation lays out (E/4 experts each, as an expert-parallel layout
+    needs) and of the naive ``arange(E) % 4``."""
+    from repro_torch.distributed.expert_placement import (
+        co_location_fraction, coactivation_graph, didic_expert_groups, expert_permutation,
+    )
+
+    idx = expert_idx.cpu().numpy()
+    e = cfg.n_experts
+    graph = coactivation_graph(idx, e)
+    groups, didic_s = once(lambda: didic_expert_groups(graph, N_GROUPS, seed=0, device=dev))
+    perm = expert_permutation(groups, N_GROUPS)
+    check(perm.shape == (e,) and sorted(perm.tolist()) == list(range(e)),
+          f"expert_permutation is a permutation of {e} experts, {e // N_GROUPS} a group")
+    balanced = np.empty(e, dtype=np.int64)
+    balanced[perm] = np.arange(e) // (e // N_GROUPS)   # the group each expert's slot falls in
+    return {"edges": graph.n_edges, "didic_s": didic_s,
+            "group_sizes": np.bincount(groups, minlength=N_GROUPS).tolist(),
+            "co_location_didic": co_location_fraction(idx, groups),
+            "co_location_balanced": co_location_fraction(idx, balanced),
+            "co_location_naive": co_location_fraction(idx, np.arange(e) % N_GROUPS)}
+
+
+def _moe_layer_timing(cfg, params, dev):
+    """``moe_fwd`` alone at ``[1, 4096, d_model]`` bf16 with layer 0's
+    weights: one call and 10 back to back, two calls' bits, and the bound:
+    every weight read once, x read and y written once, against the
+    operations of the capacity buffer (what the layer computes: E · C
+    slots), the shared experts and the router; and against the kept
+    assignments' operations alone."""
+    from repro_torch.models.moe import capacity, moe_fwd, route
+    from repro_torch.models.transformer import layer_params
+
+    m, d, n = cfg.moe, cfg.d_model, 4096
+    p = layer_params(params, 0)["moe"]
+    x = torch.randn((1, n, d), generator=torch.Generator(device=dev).manual_seed(5), device=dev).to(cfg.dtype)
+    with torch.no_grad():
+        ms, (y, _) = time_cuda(lambda: moe_fwd(p, x, m))
+        b2b_ms = time_cuda(lambda: moe_fwd(p, x, m), inner=B2B)[0]
+        check(torch.equal(y, moe_fwd(p, x, m)[0]) and bool(torch.isfinite(y).all()),
+              f"{cfg.name} moe_fwd [1x{n}x{d}]: finite, and two calls give the same bits")
+        idx = route(p, x.reshape(n, d), m)[2]
+    cap = capacity(n, m)
+    kept = int(torch.bincount(idx.reshape(-1), minlength=m.n_experts).clamp_max(cap).sum())
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(p)) + 2 * n * d * x.element_size()
+    per_slot = 6.0 * d * m.d_ff                     # gate, up and down products, 2 operations a multiply-add
+    other = 6.0 * n * d * m.d_ff * m.n_shared + 2.0 * n * d * m.n_experts
+    b_ms, b_by = bound_ms(n_bytes, m.n_experts * cap * per_slot + other, PEAK_BF16_FLOPS)
+    kept_ms, kept_by = bound_ms(n_bytes, kept * per_slot + other, PEAK_BF16_FLOPS)
+    say(f"phase 9: {cfg.name} moe_fwd [1x{n}x{d}] bf16, {m.n_experts} experts x {cap} slots, top-{m.top_k}, "
+        f"{m.n_shared} shared: {ms:.4f} ms one call, {b2b_ms:.4f} ms a call over {B2B} back to back; bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, {(m.n_experts * cap * per_slot + other) / 1e9:.1f} "
+        f"GFLOP), {100 * b_ms / b2b_ms:.1f} % of it b2b; kept assignments only ({kept} of {n * m.top_k}): "
+        f"{kept_ms:.4f} ms ({kept_by})")
+    return {"ms": ms, "b2b_ms": b2b_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "capacity": cap, "kept_assignments": kept, "kept_bound_ms": kept_ms, "kept_bound_by": kept_by}
+
+
+def phase9_lm(module, dev, main_launches):
+    """One of the other LM configs at full width and depth (``_lm_phase``);
+    for an MoE config also the dropped share, the expert placement from
+    layer 0's and the last layer's router choices, and the MoE layer's time
+    against its bound."""
+    import gc
+    import importlib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").FULL
+    check(resident < PHASE9_RESIDENT_LIMIT,
+          f"phase 9: {resident:,} bytes allocated on the card before {cfg.name} is drawn (< 2 GB)")
+    params, expert_idx, record = _lm_phase(cfg, 9, dev, main_launches)
+    if cfg.moe:
+        shares = [_dropped_share(idx, cfg.moe) for idx in expert_idx]
+        say(f"phase 9: {cfg.name} assignments dropped at capacity factor {cfg.moe.capacity_factor} over 4096 "
+            f"tokens: {100 * float(np.mean(shares)):.3f} % over the layers (layer {int(np.argmax(shares))} "
+            f"most, {100 * max(shares):.3f} %)")
+        record["dropped_share_per_layer"] = shares
+        record["placement"] = {}
+        for layer in (0, cfg.n_layers - 1):
+            pl = _placement(cfg.moe, expert_idx[layer], dev)
+            say(f"phase 9: {cfg.name} layer {layer} expert placement in {N_GROUPS} groups: co-location "
+                f"DiDiC {pl['co_location_didic']:.4f}, its balanced permutation {pl['co_location_balanced']:.4f}, "
+                f"naive {pl['co_location_naive']:.4f} "
+                f"(groups {pl['group_sizes']}, {pl['edges']} co-activation edges, DiDiC {pl['didic_s']:.2f} s)")
+            record["placement"][str(layer)] = pl
+        record["moe_layer"] = _moe_layer_timing(cfg, params, dev)
+    say(f"phase 9: {cfg.name}: forward over 4096 tokens {record['forward_s']:.4f} s "
+        f"({record['forward_tokens_per_s']:.0f} tokens/s), peak {record['forward_peak_device_bytes'] / 1e9:.2f} GB; "
+        f"server {', '.join(f'{r:.1f}' for r in record['serve_new_tokens_per_s'])} new tokens/s")
+    del params, expert_idx
+    say(json.dumps(record))
+
+
+def phase9_top_k_ties(dev):
+    """What ``torch.topk`` does with tied values on the card, beside the
+    port's stable top-k (ties to the lower index, as ``jax.lax.top_k``)."""
+    from repro_torch.models.moe import top_k
+
+    x = torch.tensor([[0.1, 0.3, 0.3, 0.2, 0.3]], device=dev)
+    lib = torch.topk(x, 3).indices.tolist()[0]
+    ours = top_k(x, 3)[1].tolist()[0]
+    check(ours == [1, 2, 4], f"the port's top-k breaks ties to the lower index on the card ({ours})")
+    say(f"phase 9: torch.topk on the card, top 3 of [.1, .3, .3, .2, .3]: {lib}; the port's top_k: {ours}")
 
 
 def main() -> int:
@@ -1403,6 +1678,7 @@ def main() -> int:
     phase1_frontier(dev, get_engine(graphs["gis"], "gis_short", device=dev), records)
     phase1_bell(dev, records)
     phase1_flash(dev, records)
+    phase1_flash_groups(dev)
     say(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {}
@@ -1436,10 +1712,14 @@ def main() -> int:
     say(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     phase5_lm(dev, main_launches)
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    phase9_top_k_ties(dev)
+    for module in PHASE9_CONFIGS:
+        phase9_lm(module, dev, main_launches)
+        say(f"phase 9 {module} done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
-        "of phase 8): " + json.dumps(main_launches, sort_keys=True))
+        "of phase 8, the four forwards of phase 9): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

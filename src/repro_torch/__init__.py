@@ -4,8 +4,9 @@ Twin of the JAX package ``repro``, module for module: ``graphs`` (the
 paper's three datasets and their layouts), ``core`` (partitioners, DiDiC,
 the traffic replay, metrics, the service facade), ``kernels`` (the
 hand-written CUDA kernels that replace the JAX package's Pallas kernels),
-and the serving paths of DIN and the dense LM: ``data``, ``models``,
-``configs``, ``serving`` and ``launch``. It imports PyTorch and numpy,
+and the serving paths of DIN and the LM (dense and MoE): ``data``, ``models``,
+``configs``, ``serving``, ``launch`` and ``distributed`` (MoE expert
+placement). It imports PyTorch and numpy,
 never JAX and never ``repro``.
 
 Every entry point takes ``device=None``, which means CUDA;
@@ -21,12 +22,14 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda``; raise if CUDA is asked for and not available."""
+    """``None`` → ``cuda``; raise if CUDA is asked for and not available.
+    ``meta`` (shapes only, no storage) passes too, for
+    :func:`repro_torch.models.transformer.init_abstract`."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

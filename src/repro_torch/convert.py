@@ -101,15 +101,31 @@ def _tree(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     return {k: _tree(v, device) if isinstance(v, dict) else _tensor(v, device) for k, v in tree.items()}
 
 
-def transformer_params_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """The JAX package's dense-LM pytree (layers stacked ``[L, ...]``) →
-    the port's parameters, same names, orientation (``y = x @ W``) and
-    types (a bfloat16 leaf stays bfloat16)."""
-    if "moe" in tree["layers"]:
-        raise NotImplementedError("MoE parameters: moe.py is not ported yet (ROADMAP, queue A item 12)")
-    missing = {"embed", "layers", "ln_f", "lm_head"} - set(tree)
+_SWIGLU_KEYS = {"w_gate", "w_up", "w_down"}
+_MOE_KEYS = {"router"} | _SWIGLU_KEYS
+
+
+def _missing(tree: Dict[str, Any], want: set, what: str) -> None:
+    missing = want - set(tree)
     if missing:
-        raise ValueError(f"not a transformer pytree: missing {sorted(missing)}")
+        raise ValueError(f"not a transformer pytree: {what} lacks {sorted(missing)}")
+
+
+def transformer_params_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's LM pytree (layers stacked ``[L, ...]``, a dense
+    ``ffn`` or a ``moe`` subtree) → the port's parameters, same names,
+    orientation (``y = x @ W``) and types (a bfloat16 leaf stays bfloat16;
+    the MoE router is float32 in both packages)."""
+    _missing(tree, {"embed", "layers", "ln_f", "lm_head"}, "the tree")
+    layers = tree["layers"]
+    _missing(layers, {"ln1", "ln2", "attn"}, "layers")
+    if "moe" in layers:
+        _missing(layers["moe"], _MOE_KEYS, "layers.moe")
+        if "shared" in layers["moe"]:
+            _missing(layers["moe"]["shared"], _SWIGLU_KEYS, "layers.moe.shared")
+    else:
+        _missing(layers, {"ffn"}, "layers")
+        _missing(layers["ffn"], _SWIGLU_KEYS, "layers.ffn")
     return _tree(tree, resolve_device(device))
 
 

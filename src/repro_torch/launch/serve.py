@@ -2,7 +2,8 @@
 
 Twin of ``repro.launch.serve``: the continuous-batching LM engine on a
 reduced config of an LM arch (2 layers, d_model 128, 8 heads, the arch's
-kv-head ratio, vocab 512), DIN scoring and retrieval at a reduced size
+kv-head ratio, vocab 512; dense for the MoE archs too, as the JAX launcher
+builds it, so both give the same tokens), DIN scoring and retrieval at a reduced size
 (10,000 items, 100 categories, history 50), or online graph serving
 (``--arch graph``: seeded clients over the partitioned GIS service at
 ``scale=0.002``, fixed-slot admission batches, background DiDiC
@@ -10,6 +11,7 @@ maintenance; no mesh), with the same sizes and seeds as the JAX launcher.
 Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch din --requests 4096 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch graph --requests 256 --arrival bursty
 """
@@ -29,6 +31,10 @@ from repro_torch import resolve_device
 #: arch id → (family, config module) of the archs the port can run.
 ARCHS = {
     "granite-3-8b": ("lm", "repro_torch.configs.granite_3_8b"),
+    "yi-34b": ("lm", "repro_torch.configs.yi_34b"),
+    "deepseek-coder-33b": ("lm", "repro_torch.configs.deepseek_coder_33b"),
+    "deepseek-moe-16b": ("lm", "repro_torch.configs.deepseek_moe_16b"),
+    "qwen3-moe-30b-a3b": ("lm", "repro_torch.configs.qwen3_moe_30b_a3b"),
     "din": ("recsys", "repro_torch.configs.din"),
 }
 
@@ -45,6 +51,7 @@ def serve_lm(arch: str, n_requests: int, device=None) -> float:
 
     dev = resolve_device(device)
     full: TransformerConfig = importlib.import_module(ARCHS[arch][1]).FULL
+    # No ``moe=``: the JAX launcher serves a dense reduced config of every arch.
     cfg = TransformerConfig(
         name=arch + "-serve", n_layers=2, d_model=128, n_heads=8,
         n_kv_heads=max(1, 8 * full.n_kv_heads // full.n_heads), d_ff=256, vocab=512,

@@ -1,0 +1,141 @@
+"""Mixture-of-Experts FFN: shared + routed experts, top-k (twin of ``repro.models.moe``).
+
+Covers the two MoE configs:
+* deepseek-moe-16b — 2 shared + 64 routed, top-6, fine-grained d_ff=1408
+  [arXiv:2401.06066],
+* qwen3-moe-30b-a3b — 128 routed, top-8, d_ff=768.
+
+Dispatch is the JAX package's sort-based grouped dispatch: token→expert
+assignments are sorted by expert id (a stable sort, as ``jnp.argsort``),
+each expert gets a buffer of ``capacity`` slots (:func:`capacity`;
+assignments past it drop, GShard semantics), and the expert SwiGLUs run as
+batched products over ``[E, C, d]``. Router: float32 softmax gating, top-k
+with ties broken toward the lower expert id (as ``jax.lax.top_k``),
+renormalised, and the Switch load-balancing loss (:func:`route`).
+
+Nothing here sums in atomic order, so a call gives the same bits on every
+run on the card: the buffer is filled by a plain indexed write (each
+``(expert, slot)`` holds at most one token; dropped assignments land in a
+spare row that is cut off), and the combine gathers each assignment's
+output back to ``[N, k, d]`` and adds the k picks in a fixed order. The
+JAX package's ``segment_sum`` computes the same function.
+
+The JAX package's ``moe_fwd_ep`` (expert parallelism under a device mesh)
+has no twin yet (ROADMAP, queue A item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import normal, swiglu, swiglu_init
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeConfig:
+    n_experts: int = 64
+    top_k: int = 6
+    n_shared: int = 0          # always-on shared experts (DeepSeekMoE)
+    d_ff: int = 1408           # per-expert width (fine-grained)
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+
+def moe_init(gen: torch.Generator, d_model: int, cfg: MoeConfig, dtype=torch.float32, device=None) -> Params:
+    """Router (always float32), stacked expert weights ``[E, ...]`` and, with
+    ``n_shared`` > 0, one shared SwiGLU of width ``d_ff · n_shared``."""
+    s = d_model ** -0.5
+    e, f = cfg.n_experts, cfg.d_ff
+    p: Params = {
+        "router": normal((d_model, e), s, gen, torch.float32, device),
+        "w_gate": normal((e, d_model, f), s, gen, dtype, device),
+        "w_up": normal((e, d_model, f), s, gen, dtype, device),
+        "w_down": normal((e, f, d_model), f ** -0.5, gen, dtype, device),
+    }
+    if cfg.n_shared:
+        p["shared"] = swiglu_init(gen, d_model, f * cfg.n_shared, dtype, device)
+    return p
+
+
+def capacity(n_tokens: int, cfg: MoeConfig) -> int:
+    """Slots per expert for a call over ``n_tokens`` tokens: at least 8,
+    rounded up to a multiple of 8."""
+    c = max(int(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 8)
+    return -(-c // 8) * 8
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of each row, ties to the lower index.
+
+    ``torch.topk`` promises no order among equal values on either device
+    (on the CPU it returns ``[2, 4, 1]`` for the top 3 of ``[.1, .3, .3,
+    .2, .3]``, where ``jax.lax.top_k`` returns ``[1, 2, 4]``), so a stable
+    descending sort takes its place."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(p: Params, xf: torch.Tensor, cfg: MoeConfig):
+    """xf [N, d] → (probs [N, E] float32, gate_vals [N, k] float32,
+    expert_idx [N, k] int64, aux scalar float32): softmax router in
+    float32, top-k renormalised, and the Switch loss ``E·Σ_e f_e·p_e``
+    over the top-1 choices."""
+    e = cfg.n_experts
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k(probs, cfg.top_k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)                                      # mean router prob
+    ce = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)     # fraction routed
+    aux = cfg.aux_loss_weight * e * torch.sum(me * ce)
+    return probs, gate_vals, expert_idx, aux
+
+
+def moe_fwd(p: Params, x: torch.Tensor, cfg: MoeConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, D] → (y: [B, T, D], aux_loss scalar)."""
+    b, t, d = x.shape
+    n = b * t
+    xf = x.reshape(n, d)
+    e, k = cfg.n_experts, cfg.top_k
+    dev = x.device
+    _, gate_vals, expert_idx, aux = route(p, xf, cfg)
+
+    # ---- sort-based grouped dispatch
+    cap = capacity(n, cfg)
+    flat_expert = expert_idx.reshape(-1)                        # [N*k], token-major
+    order = torch.argsort(flat_expert, stable=True)
+    se = flat_expert[order]
+    starts = torch.searchsorted(se, torch.arange(e, device=dev, dtype=se.dtype))  # side "left"
+    slots = torch.arange(n * k, device=dev) - starts[se]
+    keep = slots < cap                                          # overflow drops
+    row = torch.where(keep, se * cap + slots, e * cap)          # e·cap: the spare row
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
+    buf[row] = xf[order // k]                                   # at most one token a kept row
+    buf = buf[: e * cap].view(e, cap, d)
+
+    # ---- stacked expert FFN (SwiGLU), E-major batched products
+    g = torch.bmm(buf, p["w_gate"])
+    h = g * torch.sigmoid(g) * torch.bmm(buf, p["w_up"])
+    out_buf = torch.bmm(h, p["w_down"]).view(e * cap, d)
+
+    # ---- combine: each assignment's row in token-major order, weighted,
+    # then the k picks of a token added in pick order
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n * k, device=dev)
+    keep_t = keep[inv]
+    expert_out = out_buf[torch.where(keep_t, row[inv], 0)]     # [N*k, D]
+    contrib = torch.where(keep_t[:, None], expert_out * gate_vals.reshape(-1, 1).to(xf.dtype), 0.0)
+    contrib = contrib.view(n, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+
+    if cfg.n_shared:
+        y = y + swiglu(p["shared"], xf)
+    return y.reshape(b, t, d), aux

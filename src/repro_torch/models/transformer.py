@@ -1,4 +1,4 @@
-"""Decoder-only LM: GQA + RoPE + SwiGLU, dense (twin of ``repro.models.transformer``).
+"""Decoder-only LM: GQA + RoPE + SwiGLU (+ optional MoE) (twin of ``repro.models.transformer``).
 
 Parameters are stacked over layers like the JAX package's scan pytree:
 ``embed [V, D]``, ``layers`` (each leaf ``[L, ...]``), ``ln_f``, ``lm_head
@@ -12,8 +12,10 @@ KV cache, which it updates in place.
 The JAX package's ``remat``, ``unroll``, ``moe_impl``, ``attn_flat_layout``
 and ``use_flash_kernel`` only steer JAX tracing and kernel dispatch, so they
 have no twin here (the device decides the kernel). A config with ``moe`` set
-raises ``NotImplementedError``: the MoE layer is not ported yet (ROADMAP,
-queue A item 12).
+runs :func:`~repro_torch.models.moe.moe_fwd` in place of the dense SwiGLU,
+in prefill and in decode; the JAX package's expert-parallel ``moe_impl``
+needs a device mesh and waits for the port's multi-device slice (ROADMAP,
+queue A item 10).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoeConfig, moe_fwd, moe_init
 
 Params = Dict[str, Any]
 
@@ -40,24 +43,36 @@ class TransformerConfig:
     d_ff: int = 1024
     vocab: int = 1024
     rope_theta: float = 10_000.0
-    moe: Optional[Any] = None
+    moe: Optional[MoeConfig] = None
     dtype: Any = torch.float32
 
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // self.n_heads)
 
-    def param_count(self) -> int:
+    def _attn_params(self) -> int:
         d, dh = self.d_model, self.head_dim
-        attn = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        return d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
+
+    def param_count(self) -> int:
+        d = self.d_model
+        if self.moe:
+            ff = self.moe.n_experts * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+            ff += 3 * d * self.moe.d_ff * self.moe.n_shared
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = self._attn_params() + ff + 2 * d
         return self.n_layers * per_layer + self.vocab * d * 2 + d
 
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP, queue A item 12: moe.py)")
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k + shared only)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        ff = (self.moe.top_k + self.moe.n_shared) * 3 * d * self.moe.d_ff
+        ff += d * self.moe.n_experts
+        per_layer = self._attn_params() + ff + 2 * d
+        return self.n_layers * per_layer + self.vocab * d * 2 + d
 
 
 # --------------------------------------------------------------------- init
@@ -65,7 +80,6 @@ def init_params(cfg: TransformerConfig, gen: torch.Generator, device=None) -> Pa
     """Random parameters on ``device`` (default CUDA), drawn from ``gen``
     (a generator on that device) one layer at a time into the stacked
     tensors, so the float32 draws never hold more than one layer."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     d, n = cfg.d_model, cfg.n_layers
     layers: Params = {}
@@ -74,14 +88,13 @@ def init_params(cfg: TransformerConfig, gen: torch.Generator, device=None) -> Pa
             "ln1": L.rmsnorm_init(d, cfg.dtype, dev),
             "ln2": L.rmsnorm_init(d, cfg.dtype, dev),
             "attn": L.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, dev),
-            "ffn": L.swiglu_init(gen, d, cfg.d_ff, cfg.dtype, dev),
         }
-        for group, leaves in lp.items():
-            stacked = layers.setdefault(group, {})
-            for name, t in leaves.items():
-                if i == 0:
-                    stacked[name] = torch.empty((n, *t.shape), dtype=t.dtype, device=dev)
-                stacked[name][i] = t
+        if cfg.moe:
+            lp["moe"] = moe_init(gen, d, cfg.moe, cfg.dtype, dev)
+        else:
+            lp["ffn"] = L.swiglu_init(gen, d, cfg.d_ff, cfg.dtype, dev)
+        _stack_into(layers, lp, i, n)
+        del lp  # the last layer's copy goes before the embedding draws
     return {
         "embed": L.normal((cfg.vocab, d), d ** -0.5, gen, cfg.dtype, dev),
         "layers": layers,
@@ -90,28 +103,60 @@ def init_params(cfg: TransformerConfig, gen: torch.Generator, device=None) -> Pa
     }
 
 
+def init_abstract(cfg: TransformerConfig) -> Params:
+    """Shape-only parameters on the ``meta`` device: no storage is allocated
+    (twin of the JAX package's ``init_abstract``)."""
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
+def _stack_into(stacked: Params, lp: Params, i: int, n: int) -> None:
+    """Copy layer ``i``'s (nested) parameters into the ``[n, ...]`` stacks."""
+    for name, t in lp.items():
+        if isinstance(t, dict):
+            _stack_into(stacked.setdefault(name, {}), t, i, n)
+            continue
+        if i == 0:
+            stacked[name] = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+        stacked[name][i] = t
+
+
+def _index(tree: Params, i: int) -> Params:
+    return {name: _index(t, i) if isinstance(t, dict) else t[i] for name, t in tree.items()}
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s parameters: views into the stacked tensors."""
-    return {group: {name: t[i] for name, t in leaves.items()}
-            for group, leaves in params["layers"].items()}
+    return _index(params["layers"], i)
 
 
 # ------------------------------------------------------------------ forward
-def _layer_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward on ``h``: the MoE (with its aux loss) or the
+    dense SwiGLU (aux None)."""
+    if cfg.moe:
+        return moe_fwd(lp["moe"], L.rmsnorm(lp["ln2"], h), cfg.moe)
+    return L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], h)), None
+
+
+def _layer_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = x + L.attention_fwd(lp["attn"], L.rmsnorm(lp["ln1"], x), cfg.n_heads, cfg.n_kv_heads,
                             rope_theta=cfg.rope_theta)
-    return h + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], h))
+    y, aux = _ffn(cfg, lp, h)
+    return h + y, aux
 
 
 def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, T] → (logits [B, T, V], aux_loss); aux is 0 for a dense model."""
-    _dense_only(cfg)
+    """tokens [B, T] → (logits [B, T, V], aux_loss summed over the layers;
+    0 for a dense model)."""
     x = params["embed"][tokens.long()]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, layer_params(params, i), x)
+        x, a = _layer_fwd(cfg, layer_params(params, i), x)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["ln_f"], x)
     logits = x @ params["lm_head"]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -143,7 +188,6 @@ def serve_step(
     position: int,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step: logits [B, V] and the (updated) cache."""
-    _dense_only(cfg)
     x = params["embed"][token.long()[:, None]]   # [B,1,D]
     ck_all, cv_all = cache
     for i in range(cfg.n_layers):
@@ -153,7 +197,7 @@ def serve_step(
             (ck_all[i], cv_all[i]), position, rope_theta=cfg.rope_theta,
         )
         h = x + attn_out
-        x = h + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], h))
+        x = h + _ffn(cfg, lp, h)[0]
     x = L.rmsnorm(params["ln_f"], x)
     logits = (x @ params["lm_head"])[:, 0, :]
     return logits, (ck_all, cv_all)

@@ -447,3 +447,72 @@ def test_cuda_gis_recovered_run_bit_exact():
                                           err_msg=f"slice {i} {field}")
     assert [vars(r) for r in out.records] == [vars(r) for r in ref.records]
     np.testing.assert_array_equal(out.parts, ref.parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(56, 8), (32, 4), (16, 16)])
+def test_cuda_flash_attention_wgmma_new_groups(hq, hkv):
+    """The tensor-core kernel at the GQA groups of yi-34b and
+    deepseek-coder-33b (7), qwen3-moe-30b-a3b (8) and deepseek-moe-16b (1):
+    Dh 128, bf16, causal, ragged Tq (333, two batches), within two bfloat16
+    steps of float32 attention rounded to bfloat16, each call on ``wgmma``."""
+    from repro_torch.kernels.flash_attention import KERNEL, attention_ref, flash_attention
+
+    dev = _cuda_or_skip()
+    q, k, v = _bf16_attention_inputs(dev, 11, 2, hq, hkv, 333, 333, 128)
+    before = KERNEL.route_launches.get("wgmma", 0)
+    got = flash_attention(q, k, v, causal=True)
+    assert KERNEL.route_launches.get("wgmma", 0) == before + 1
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=4e-3)
+
+
+def _moe_case(dev, tied: bool = False):
+    from repro_torch.models.moe import MoeConfig, moe_init
+
+    cfg = MoeConfig(n_experts=16, top_k=4, n_shared=1, d_ff=128, capacity_factor=1.0)
+    p = moe_init(torch.Generator().manual_seed(0), 256, cfg, torch.bfloat16, "cpu")
+    if tied:
+        p["router"][:, 5] = p["router"][:, 2]
+        p["router"][:, 9] = p["router"][:, 2]
+    x = torch.randn((2, 384, 256), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    on_card = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+               for k, v in p.items()}
+    return cfg, p, x, on_card, x.to(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_fwd_matches_cpu_and_repeats_bit_for_bit():
+    """``moe_fwd`` on the card against the CPU run of the same bf16 weights
+    (the same top-k choices, capacity drops included; outputs within 0.0625,
+    the CPU tests' bf16 bar against the JAX package), and two card runs give
+    the same bits: the buffer write and the combine use no atomics."""
+    from repro_torch.models.moe import capacity, moe_fwd, route
+
+    dev = _cuda_or_skip()
+    cfg, p, x, pc, xc = _moe_case(dev)
+    idx = route(pc, xc.reshape(-1, 256), cfg)[2]
+    np.testing.assert_array_equal(idx.cpu().numpy(), route(p, x.reshape(-1, 256), cfg)[2].numpy())
+    assert int(torch.bincount(idx.reshape(-1)).max()) > capacity(768, cfg)  # some assignments drop
+    y, aux = moe_fwd(pc, xc, cfg)
+    y_cpu, aux_cpu = moe_fwd(p, x, cfg)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    torch.testing.assert_close(y.float().cpu(), y_cpu.float(), rtol=0, atol=0.0625)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)
+    y2, aux2 = moe_fwd(pc, xc, cfg)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+
+
+@pytest.mark.cuda
+def test_cuda_route_breaks_ties_to_the_lower_expert():
+    """Router columns 5 and 9 copy column 2: on the card the top-k choices
+    equal the CPU's, which the CPU tests hold to ``jax.lax.top_k``."""
+    from repro_torch.models.moe import route
+
+    dev = _cuda_or_skip()
+    cfg, p, x, pc, xc = _moe_case(dev, tied=True)
+    idx = route(pc, xc.reshape(-1, 256), cfg)[2].cpu()
+    want = route(p, x.reshape(-1, 256), cfg)[2]
+    assert bool((torch.isin(want, torch.tensor([2, 5, 9])).sum(dim=1) >= 2).any())
+    assert torch.equal(idx, want)

@@ -174,14 +174,6 @@ def test_bf16_forward_tracks_float32(lm):
     np.testing.assert_allclose(got, jgot, rtol=0, atol=0.0625)
 
 
-def test_moe_config_is_refused():
-    cfg = tf.TransformerConfig(**LM, moe=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.forward(cfg, {}, torch.zeros((1, 2), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.transformer_params_from_arrays({"layers": {"moe": {}}}, device="cpu")
-
-
 def test_init_params_shapes_and_count():
     cfg = tf.TransformerConfig(**LM)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

@@ -19,12 +19,14 @@ import pytest
 import torch
 
 from repro.models import transformer as jax_tf
+from repro.models.moe import MoeConfig as JaxMoeConfig
 from repro.serving.engine import Request as JaxRequest
 from repro.serving.engine import ServingEngine as JaxEngine
 import repro_torch
 from repro_torch import convert
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
+from repro_torch.models.moe import MoeConfig
 from repro_torch.serving.engine import Request, ServingEngine
 
 # The suite runs in several worker processes at once; one intra-op thread
@@ -41,12 +43,11 @@ def _requests(cls, seed=0, n=6):
             for _ in range(n)]
 
 
-def test_engine_tokens_identical_to_jax_engine():
-    jcfg = jax_tf.TransformerConfig(**LM)
+def _engine_parity(jcfg, cfg):
     jparams = jax_tf.init_params(jcfg, jax.random.PRNGKey(1))
     params = convert.transformer_params_from_arrays(jax.tree.map(np.asarray, jparams), device="cpu")
     jeng = JaxEngine(jcfg, jparams, batch_slots=2, max_len=32)
-    eng = ServingEngine(tf.TransformerConfig(**LM), params, batch_slots=2, max_len=32, device="cpu")
+    eng = ServingEngine(cfg, params, batch_slots=2, max_len=32, device="cpu")
     jreqs, reqs = _requests(JaxRequest), _requests(Request)
     for a, b in zip(jreqs, reqs):
         jeng.submit(a)
@@ -58,6 +59,18 @@ def test_engine_tokens_identical_to_jax_engine():
     assert [len(r.generated) for r in reqs] == [r.max_new_tokens for r in reqs]
     for got, want in zip(eng.cache, jeng.cache):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_engine_tokens_identical_to_jax_engine():
+    _engine_parity(jax_tf.TransformerConfig(**LM), tf.TransformerConfig(**LM))
+
+
+def test_moe_engine_tokens_identical_to_jax_engine():
+    """The engine over an MoE LM (shared and routed experts; a decode step
+    routes its 2 slots, with 8 slots of capacity for each expert)."""
+    moe = dict(n_experts=8, top_k=2, n_shared=1, d_ff=32)
+    _engine_parity(jax_tf.TransformerConfig(**LM, moe=JaxMoeConfig(**moe)),
+                   tf.TransformerConfig(**LM, moe=MoeConfig(**moe)))
 
 
 def test_prefill_writes_every_slot_and_clock_is_shared():
@@ -89,7 +102,7 @@ def test_engine_and_serve_default_to_cuda(monkeypatch):
         repro_torch.resolve_device(None)
 
 
-@pytest.mark.parametrize("arch", ["graph", "yi-34b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["graph", "gcn-cora", "mace"])
 def test_serve_refuses_what_is_not_ported(arch, capsys):
     """An arch the port lacks is refused, naming its ROADMAP item; ``graph``
     (online graph serving) is ported and serves instead."""
@@ -101,7 +114,11 @@ def test_serve_refuses_what_is_not_ported(arch, capsys):
         serve.main(["--arch", arch, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch,expect", [("granite-3-8b", "128 tokens"), ("din", "req/s")])
+@pytest.mark.parametrize("arch,expect", [
+    ("granite-3-8b", "128 tokens"), ("din", "req/s"), ("yi-34b", "128 tokens"),
+    ("deepseek-coder-33b", "128 tokens"), ("deepseek-moe-16b", "128 tokens"),
+    ("qwen3-moe-30b-a3b", "128 tokens"),
+])
 def test_serve_cli_runs_on_cpu(arch, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
