@@ -18,7 +18,10 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    on the same bfloat16 inputs, and two ``bell_matmul`` launches on
    DiDiC's matrix must give the same bits; ``flash_attention`` also at the
    other LM configs' prefill groups (Hq/Hkv 56/8, 32/4, 16/16; T 4,096, Dh
-   128, bf16) against its plain version and beside SDPA;
+   128, bf16) against its plain version and beside SDPA; and its backward
+   (``autograd.Function``: the kernel forward, the plain backward) at
+   granite's prefill shape against autograd through the plain version,
+   forward plus backward timed beside SDPA's;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -73,12 +76,22 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    share of assignments dropped at capacity factor 1.25, DiDiC expert
    placement from layer 0's and the last layer's router choices
    (co-location against the naive groups, a balanced permutation), and
-   ``moe_fwd`` alone at ``[1, 4096, d_model]`` against its bound.
+   ``moe_fwd`` alone at ``[1, 4096, d_model]`` against its bound;
+10. after phase 9, training: (a) granite-3-8b at full width, bf16, depth
+    cut to the largest of 16, 12 and 8 layers whose step peaks under 76
+    GB (one step each at 4 and 8 layers measures the peak's line), the
+    port's ``Trainer`` for 5 steps on one 4,096-token sequence repeated,
+    then one step split into forward, backward and update by CUDA events,
+    with every gradient finite and wq, wk, wv non-zero in every layer;
+    (b) ``launch.train`` for the five LM archs and DIN, 40 steps with a
+    checkpoint directory under ``build/`` and a fault at step 20, on the
+    card and on the CPU, whose losses the card's must equal.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
-the granite forward call of phase 5 and the four forward calls of phase 9
+the granite forward call of phase 5, the four forward calls of phase 9
+and phase 10's trainer runs on the card
 (``flash_attention``), every replay
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables and phase 8's uninterrupted, recovered and
@@ -1249,6 +1262,68 @@ def phase1_flash_groups(dev):
     say(json.dumps({"phase": 1, "flash_attention_groups": out}))
 
 
+def phase1_flash_backward(dev, records):
+    """``flash_attention``'s backward at granite-3-8b's prefill shape (B 1,
+    T 4,096, Hq 32, Hkv 8, Dh 128, causal, bf16): the ``autograd.Function``
+    (the kernel forward, the plain backward) against autograd through the
+    plain version, dq, dk and dv within 3e-2 (the bf16 bar), and forward plus
+    backward timed beside SDPA's forward plus backward (its library time)."""
+    from repro_torch.kernels.flash_attention import KERNEL, attention_ref, flash_attention
+
+    hq, hkv, t, dh = 32, 8, 4096, 128
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, dout = (torch.randn((h, t, dh), generator=gen, device=dev).to(torch.bfloat16)
+                     for h in (hq, hkv, hkv, hq))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    launches = KERNEL.launches
+    out = flash_attention(q, k, v)
+    check(KERNEL.launches == launches + 1, "flash_attention under autograd: one forward launch")
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    check(KERNEL.launches == launches + 1, "flash_attention's backward launched no kernel")
+    want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), dout)
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        check(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+              and torch.allclose(g.float(), w.float(), rtol=3e-2, atol=3e-2),
+              f"flash_attention backward at granite's prefill shape: {name} within 3e-2 of the plain "
+              f"version's autograd (max abs {err:.3g})")
+        errs.append(err)
+    del out, got, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def port():
+        return torch.autograd.grad(flash_attention(q, k, v), (q, k, v), dout)
+
+    def plain():
+        return torch.autograd.grad(attention_ref(q, k, v), (q, k, v), dout)
+
+    def library():
+        return torch.autograd.grad(sdpa(q[None], k[None], v[None], is_causal=True, enable_gqa=True),
+                                   (q, k, v), dout[None])
+
+    ms = time_cuda(port, reps=5)[0]
+    b2b_ms = time_cuda(port, reps=3, inner=B2B)[0]
+    plain_ms = time_cuda(plain, reps=3)[0]
+    library_ms = time_cuda(library)[0]
+    library_b2b_ms = time_cuda(library, inner=B2B)[0]
+    pairs = t * (t + 1) // 2
+    n_flops = 12.0 * hq * pairs * dh              # q.k and p.v forward; dv, dp, dq, dk backward
+    n_bytes = (2 * hq + 2 * hkv) * t * dh * 2 * 2  # q, k, v, dO read; dq, dk, dv, o written, bf16
+    b_ms, b_by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
+    say(f"phase 1: flash_attention forward + backward, bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernel forward and "
+        f"plain backward {ms:.4f} ms ({b2b_ms:.4f} ms a call over {B2B} back to back), plain forward and backward "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention forward and backward {library_ms:.4f} ms "
+        f"({library_b2b_ms:.4f} b2b), bound {b_ms:.4f} ms ({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s); "
+        f"{ms / library_ms:.1f}x SDPA")
+    records["flash_attention"].update({
+        "backward": "plain, under autograd.Function", "fwd_bwd_ms": ms, "fwd_bwd_b2b_ms": b2b_ms,
+        "fwd_bwd_plain_ms": plain_ms, "fwd_bwd_library_ms": library_ms,
+        "fwd_bwd_library_b2b_ms": library_b2b_ms, "fwd_bwd_bound_ms": b_ms, "fwd_bwd_max_abs_err": max(errs),
+    })
+
+
 def _embedding_bag_checks(dev, params, batch, records):
     """``embedding_bag`` at the JAX package's test shapes (within 1e-6) and
     at the main path's shape: DIN's item table, 262,144 bags of 100."""
@@ -1655,6 +1730,275 @@ def phase9_top_k_ties(dev):
     say(f"phase 9: torch.topk on the card, top 3 of [.1, .3, .3, .2, .3]: {lib}; the port's top_k: {ours}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+TRAIN_DEPTHS = (16, 12, 8)      # phase 10a's depths, largest first: one card holds no more
+TRAIN_PEAK_LIMIT = 76e9         # bytes a depth's training step may peak at (of the card's 80 GB)
+TRAIN_PROBE_DEPTHS = (4, 8)     # one step each: the peak's line over the depth
+TRAIN_STEPS = 5
+# Adam's first step moves every weight by about lr·sign(g), coherently over
+# 4,096-wide products: at 3e-4 (the optimizer's default) the loss of the
+# 12-layer model rose after the first step, so did it at 1e-4 and 3e-5;
+# 1e-5 lowers it every step on the repeated batch.
+TRAIN_LR = 1e-5
+LAUNCH_STEPS = 40               # phase 10b: steps of each training launcher
+LAUNCH_FAULT_STEP = 20
+LAUNCH_ARCHS = ("granite-3-8b", "yi-34b", "deepseek-coder-33b", "deepseek-moe-16b", "qwen3-moe-30b-a3b", "din")
+LOSS_RTOL = 1e-5                # tests/test_torch_train.py LOSS_RTOL: the trainer against the JAX trainer
+MOE_LOSS_RTOL = 1e-2            # tests/test_torch_train.py MOE_LOSS_RTOL: the same with top-k routing
+
+
+def _granite_train_cfg(depth):
+    from repro_torch.configs.granite_3_8b import FULL
+
+    return dataclasses.replace(FULL, name=f"granite-3-8b-{depth}L", n_layers=depth)
+
+
+def _granite_trainer(cfg, dev, steps):
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    return Trainer(lambda p, b: tf.loss_fn(cfg, p, b), params,
+                   AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps),
+                   TrainerConfig(total_steps=steps, log_every=1))
+
+
+def _probe_peak(depth, batch, dev) -> int:
+    """Peak device bytes of one training step of granite at ``depth``."""
+    import gc
+    import itertools
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _granite_trainer(_granite_train_cfg(depth), dev, 1)
+    tr.fit(itertools.repeat(batch))
+    peak = torch.cuda.max_memory_allocated()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _train_depth(batch, dev):
+    """The largest of ``TRAIN_DEPTHS`` whose peak stays under
+    ``TRAIN_PEAK_LIMIT``: each probe depth's peak is measured, and the peak
+    is linear in the depth (parameters, moments, gradients and activations
+    all grow by one layer's worth a layer), so the line through the probes
+    gives the others. The chosen depth's own peak is checked after its run."""
+    peaks = {d: _probe_peak(d, batch, dev) for d in TRAIN_PROBE_DEPTHS}
+    (d0, p0), (d1, p1) = sorted(peaks.items())
+    per_layer = (p1 - p0) / (d1 - d0)
+    predicted = {d: peaks.get(d, p1 + (d - d1) * per_layer) for d in TRAIN_DEPTHS}
+    depth = next((d for d in TRAIN_DEPTHS if predicted[d] < TRAIN_PEAK_LIMIT), None)
+    say(f"phase 10: granite-3-8b training peak, measured: " + ", ".join(f"{d} layers {p / 1e9:.2f} GB"
+                                                                     for d, p in sorted(peaks.items()))
+        + f"; {per_layer / 1e9:.3f} GB a layer; predicted " + ", ".join(
+            f"{d} layers {predicted[d] / 1e9:.2f} GB" for d in TRAIN_DEPTHS))
+    check(depth is not None, f"phase 10: a depth of {TRAIN_DEPTHS} trains under {TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
+    return depth, peaks, predicted
+
+
+def _select_backward_cost(layers, dev):
+    """What indexing the stacked ``[L, ...]`` parameters costs the backward:
+    for each layer's use, ``SelectBackward`` writes a zero gradient of the
+    whole stack with the layer's slice copied in, and autograd adds it into
+    the stack's gradient. This replays those operations on the stacked
+    leaves (the layer's own values as its gradient), by CUDA events, beside
+    the L slice copies a per-layer layout would need."""
+    from repro_torch.optim.adamw import leaves
+
+    def replay():
+        for t in leaves(layers):
+            acc = None
+            for i in range(t.shape[0]):
+                full = torch.zeros_like(t)
+                full[i].copy_(t[i])
+                acc = full if acc is None else acc.add_(full)
+            del acc
+
+    def sliced():
+        for t in leaves(layers):
+            out = torch.empty_like(t)
+            for i in range(t.shape[0]):
+                out[i].copy_(t[i])
+
+    n = next(iter(leaves(layers))).shape[0]
+    stack_bytes = sum(t.numel() * t.element_size() for t in leaves(layers))
+    replay_ms = time_cuda(replay, reps=3, warmup=1)[0]
+    sliced_ms = time_cuda(sliced, reps=3, warmup=1)[0]
+    # Bytes: each use writes the whole zero stack, and the add reads two and
+    # writes one (the first use's stack becomes the sum): 4 stacks a use, less 3 once.
+    moved = (4 * n - 3) * stack_bytes
+    return {"layers": n, "stack_bytes": stack_bytes, "replay_ms": replay_ms, "slice_copies_ms": sliced_ms,
+            "replay_bytes": moved}
+
+
+def phase10_granite(dev, main_launches):
+    """granite-3-8b at full width, bf16, depth cut as one card forces:
+    ``TRAIN_STEPS`` trainer steps on one 4,096-token sequence repeated, then
+    one more step split into forward, backward and update by CUDA events,
+    whose gradients are checked."""
+    import gc
+    import itertools
+
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    check(resident < PHASE9_RESIDENT_LIMIT,
+          f"phase 10: {resident:,} bytes allocated on the card before granite is drawn for training (< 2 GB)")
+    raw = next(lm_token_stream(LmDataConfig(vocab=49_155, seq_len=4096, batch=1)))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    depth, probe_peaks, predicted = _train_depth(batch, dev)
+    cfg = _granite_train_cfg(depth)
+    say(f"phase 10: granite-3-8b trained at full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, Dh {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), depth cut from 40 to {depth} "
+        f"layers ({cfg.param_count():,} parameters): AdamW's float32 moments and a pure step (old and new state "
+        f"alive at the update, 22 B a parameter) do not fit 40 layers on one 80 GB card")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _granite_trainer(cfg, dev, TRAIN_STEPS)
+    kernels.reset_launch_counts()
+    tr.fit(itertools.repeat(batch))
+    counts = kernels.launch_counts()
+    routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+    _add_counts(main_launches, counts)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    step_s = [m["step_time_s"] for m in tr.metrics_log]
+    n_steps = TRAIN_STEPS + tr.straggler.redispatches
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"phase 10: {TRAIN_STEPS} steps, every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
+    check(losses[-1] < losses[0], f"phase 10: the loss at step {TRAIN_STEPS} ({losses[-1]:.4f}) is below step 1's "
+                                  f"({losses[0]:.4f})")
+    check(counts["flash_attention"] == depth * n_steps and routes == {"wgmma": depth * n_steps},
+          f"phase 10: flash_attention launched {counts['flash_attention']} times in {n_steps} steps, one a layer, "
+          f"all on the tensor-core route ({routes}), none in the backward")
+    check(peak < TRAIN_PEAK_LIMIT, f"phase 10: training peak {peak / 1e9:.2f} GB at {depth} layers "
+                                   f"(< {TRAIN_PEAK_LIMIT / 1e9:.0f} GB; predicted {predicted[depth] / 1e9:.2f})")
+    check(peak < 80e9, f"phase 10: training peak {peak / 1e9:.2f} GB under the card's 80 GB")
+    median_s = statistics.median(step_s)
+    say(f"phase 10: granite-3-8b {depth} layers, {TRAIN_STEPS} steps of 4096 tokens: step s "
+        f"{', '.join(f'{x:.4f}' for x in step_s)}; median {median_s:.4f} s, {4096 / median_s:.0f} tokens/s; "
+        f"peak {peak:,} B")
+
+    # One more step, split by CUDA events; its gradients are checked.
+    state, opt_cfg = tr.state, tr.opt_cfg
+    del tr
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    live = adamw.tree_map(lambda p: p.detach().requires_grad_(True), state["params"])
+    kernels.reset_launch_counts()
+    ev[0].record()
+    loss = tf.loss_fn(cfg, live, batch)
+    ev[1].record()
+    fwd_flash = kernels.launch_counts()["flash_attention"]
+    grads = torch.autograd.grad(loss, list(adamw.leaves(live)))
+    ev[2].record()
+    bwd_flash = kernels.launch_counts()["flash_attention"] - fwd_flash
+    grad_tree = adamw.tree_unflatten(live, grads)
+    del live, loss
+    new_state = adamw.update(state["params"], grad_tree, state["opt"], opt_cfg)
+    ev[3].record()
+    ev[3].synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    del new_state
+    check(fwd_flash == depth and bwd_flash == 0,
+          f"phase 10: the split step's forward launched flash_attention {fwd_flash} times, its backward {bwd_flash}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"phase 10: all {len(grads)} gradient leaves finite")
+    nonzero = {w: [bool(x) for x in (grad_tree["layers"]["attn"][w].float().abs().amax(dim=(1, 2)) > 0).tolist()]
+               for w in ("wq", "wk", "wv")}
+    check(all(all(v) for v in nonzero.values()),
+          f"phase 10: the gradients of wq, wk and wv are non-zero in every one of the {depth} layers")
+    del grads, grad_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    select = _select_backward_cost(state["params"]["layers"], dev)
+    say(f"phase 10: one step split by CUDA events: forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, AdamW update "
+        f"{upd_ms:.2f} ms; SelectBackward on the stacked layers, replayed: {select['replay_ms']:.2f} ms "
+        f"({select['replay_bytes'] / 1e9:.1f} GB moved, a {select['stack_bytes'] / 1e9:.2f} GB stack), against "
+        f"{select['slice_copies_ms']:.2f} ms for the per-layer slices alone")
+    del state
+    say(json.dumps({
+        "phase": 10, "model": cfg.name, "depth": depth, "parameters": cfg.param_count(), "tokens": 4096,
+        "losses": losses, "step_s": step_s, "median_step_s": median_s, "tokens_per_s": 4096 / median_s,
+        "peak_device_bytes": peak, "probe_peak_device_bytes": probe_peaks,
+        "predicted_peak_device_bytes": predicted, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "update_ms": upd_ms, "flash_attention_launches": counts["flash_attention"],
+        "select_backward": select,
+    }))
+
+
+def phase10_launchers(dev, main_launches):
+    """``launch.train`` on the card for the five LM archs and DIN,
+    ``LAUNCH_STEPS`` steps each with a checkpoint directory under ``build/``
+    and a fault injected at step ``LAUNCH_FAULT_STEP``; the same launcher on
+    the CPU in the same phase, whose losses the card's must equal."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import ARCHS
+    from repro_torch.launch.train import RUNNERS
+    from repro_torch.train.fault import FaultInjector
+
+    out = {}
+    for arch in LAUNCH_ARCHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            ckpt_dir = os.path.join(ROOT, "build", "phase10_ckpt", f"{arch}-{device}")
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            run = RUNNERS[ARCHS[arch][0]]
+            if device == "cuda":
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            tr = run(arch, LAUNCH_STEPS, ckpt_dir, device=dev if device == "cuda" else "cpu",
+                     fault_injector=FaultInjector(fail_at_steps=(LAUNCH_FAULT_STEP,)))
+            wall = time.perf_counter() - t0
+            if device == "cuda":
+                counts = kernels.launch_counts()
+                _add_counts(main_launches, counts)
+            runs[device] = (tr, wall)
+            check(tr.step == LAUNCH_STEPS and tr.recoveries == 1
+                  and f"ckpt_{LAUNCH_STEPS:08d}.manifest.json" in os.listdir(ckpt_dir),
+                  f"phase 10: launch.train {arch} on {device}: recovered from the fault at step {LAUNCH_FAULT_STEP} "
+                  f"and ended at step {LAUNCH_STEPS} with its checkpoint ({wall:.2f} s)")
+            shutil.rmtree(ckpt_dir)
+        card, cpu = runs["cuda"][0], runs["cpu"][0]
+        losses = [m["loss"] for m in card.metrics_log]
+        cpu_losses = [m["loss"] for m in cpu.metrics_log]
+        first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        check(all(np.isfinite(losses)) and last < first,
+              f"phase 10: launch.train {arch} on the card: mean loss of the last 3 logged steps {last:.4f} < "
+              f"the first 3's {first:.4f}")
+        moe = arch in ("deepseek-moe-16b", "qwen3-moe-30b-a3b")
+        rtol = MOE_LOSS_RTOL if moe else LOSS_RTOL
+        gap = float(np.max(np.abs(np.array(losses) - cpu_losses) / np.abs(cpu_losses)))
+        check(len(losses) == len(cpu_losses) and gap <= rtol,
+              f"phase 10: launch.train {arch}: the card's {len(losses)} logged losses equal the CPU's within "
+              f"{rtol:g} relative (largest gap {gap:.3g})")
+        steps_run = LAUNCH_STEPS + card.straggler.redispatches
+        if ARCHS[arch][0] == "lm":
+            routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+            check(counts["flash_attention"] == 4 * steps_run and routes == {"ffma": 4 * steps_run},
+                  f"phase 10: launch.train {arch}: {counts['flash_attention']} flash_attention launches on the "
+                  f"float32 route, 4 layers x {steps_run} steps")
+        out[arch] = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "losses": losses,
+                     "cpu_losses": cpu_losses, "max_rel_gap": gap, "recoveries": card.recoveries,
+                     "redispatches": card.straggler.redispatches, "launches": counts}
+        say(f"phase 10: launch.train {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, card {runs['cuda'][1]:.2f} s, "
+            f"CPU {runs['cpu'][1]:.2f} s, card == CPU within {gap:.3g}")
+    say(json.dumps({"phase": 10, "launchers": out}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -1679,6 +2023,7 @@ def main() -> int:
     phase1_bell(dev, records)
     phase1_flash(dev, records)
     phase1_flash_groups(dev)
+    phase1_flash_backward(dev, records)
     say(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {}
@@ -1716,10 +2061,14 @@ def main() -> int:
     for module in PHASE9_CONFIGS:
         phase9_lm(module, dev, main_launches)
         say(f"phase 9 {module} done at {time.perf_counter() - t_start:.1f} s")
+    phase10_granite(dev, main_launches)
+    say(f"phase 10 granite done at {time.perf_counter() - t_start:.1f} s")
+    phase10_launchers(dev, main_launches)
+    say(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
-        "of phase 8, the four forwards of phase 9): " + json.dumps(main_launches, sort_keys=True))
+        "of phase 8, the four forwards of phase 9, the training steps of phase 10): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -18,6 +18,7 @@ from repro_torch.core.traffic import OpLog
 from repro_torch.graphs.structure import BlockEll, Graph, PaddedNeighbors
 
 __all__ = [
+    "adamw_state_from_arrays",
     "block_ell_from_arrays",
     "didic_state_from_arrays",
     "din_params_from_arrays",
@@ -135,3 +136,18 @@ def din_params_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     if missing:
         raise ValueError(f"not a DIN pytree: missing {sorted(missing)}")
     return _tree(tree, resolve_device(device))
+
+
+def adamw_state_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's AdamW state (``m`` and ``v`` float32 trees like the
+    parameters, ``step`` an int32 scalar) → the port's, so that a JAX train
+    state resumes in :class:`repro_torch.train.Trainer`."""
+    missing = {"m", "v", "step"} - set(tree)
+    if missing:
+        raise ValueError(f"not an AdamW state: missing {sorted(missing)}")
+    dev = resolve_device(device)
+    return {
+        "m": _tree(tree["m"], dev),
+        "v": _tree(tree["v"], dev),
+        "step": torch.as_tensor(np.array(tree["step"], dtype=np.int32), device=dev),
+    }

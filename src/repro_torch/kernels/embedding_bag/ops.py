@@ -6,6 +6,12 @@ kernel ``csrc/embedding_bag.cu``, which raises if it fails to build or
 launch. :func:`embedding_bag_auto` adds ``sum``/``mean`` pooling on top,
 normalising ``mean`` weights exactly as the JAX package does. The JAX
 package's ``use_kernel`` switch has no twin: the device decides.
+
+On the card the kernel's output is differentiable: :func:`embedding_bag`
+runs it inside a ``torch.autograd.Function`` (:class:`_EmbeddingBag`) whose
+forward is one counted launch and whose backward is the plain
+:func:`.ref.embedding_bag_bwd_ref`, as the JAX package differentiates its
+oracle. :data:`KERNEL` counts forward launches only.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import CudaKernel, check_cuda_tensor
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_bwd_ref, embedding_bag_ref
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -35,19 +41,43 @@ def embedding_bag(
         return embedding_bag_ref(table, indices, weights)
     if table.device.type != "cuda":
         raise ValueError(f"embedding_bag runs on cpu or cuda tensors, got {table.device}")
+    return _EmbeddingBag.apply(table, indices, weights)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """The CUDA branch under autograd: forward is the kernel (one counted
+    launch), backward the plain :func:`embedding_bag_bwd_ref` (no launch)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights):
+        ctx.save_for_backward(table, indices, weights)
+        return _kernel_call(table, indices, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        table, indices, weights = ctx.saved_tensors
+        dtable, dweights = embedding_bag_bwd_ref(table.shape, indices, weights, table, dout.contiguous())
+        return dtable, None, dweights
+
+
+def _kernel_call(table, indices, weights) -> torch.Tensor:
+    """One launch of ``csrc/embedding_bag.cu`` on checked CUDA tensors."""
     check_cuda_tensor(table, "table", (torch.float32,), 2, table.device)
     check_cuda_tensor(indices, "indices", (torch.int32,), 2, table.device)
     check_cuda_tensor(weights, "weights", (torch.float32,), 2, table.device)
     if weights.shape != indices.shape:
         raise ValueError(f"weights {tuple(weights.shape)} and indices {tuple(indices.shape)} differ")
+    out = torch.empty((indices.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    _launch(table, indices, weights, out)
+    return out
+
+
+def _launch(table, indices, weights, out) -> None:
     b, l = indices.shape
-    d = table.shape[1]
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     KERNEL.launch(
         table.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        b, l, d, torch.cuda.current_stream(table.device).cuda_stream,
+        b, l, table.shape[1], torch.cuda.current_stream(table.device).cuda_stream,
     )
-    return out
 
 
 def embedding_bag_auto(

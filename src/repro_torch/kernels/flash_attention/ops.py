@@ -18,6 +18,14 @@ that no main path takes (granite's heads are 128 wide): zero columns add
 exactly 0 to q·k, and the scale stays ``Dh**-0.5`` of the true head dim.
 Each launch counts once on :data:`KERNEL` and once under its route.
 
+On the card the kernel's output is differentiable: :func:`flash_attention`
+runs it inside a ``torch.autograd.Function`` (:class:`_FlashAttention`)
+whose forward is one counted launch and whose backward is the plain
+:func:`.ref.attention_bwd_ref`, as the JAX package differentiates its oracle
+(no Pallas kernel of it has a backward). So :data:`KERNEL` counts forward
+launches only; a backward launches nothing. On the CPU the plain forward is
+differentiated by autograd itself.
+
 The JAX package's ``use_kernel`` and ``flat_layout`` switches and its TPU
 tile sizes ``block_q``/``block_k`` have no twin: the device decides, and
 the CUDA kernels pick their own tiles (the tiling changes no result beyond
@@ -33,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import CudaKernel, check_cuda_tensor
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -68,7 +76,24 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
-    return _kernel_call(q, k, v, causal=causal, q_offset=q_offset)
+    return _FlashAttention.apply(q, k, v, causal, q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA branch under autograd: forward is the kernel (one counted
+    launch), backward the plain :func:`attention_bwd_ref` (no launch)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return _kernel_call(q, k, v, causal=causal, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_ref(q, k, v, dout, causal=ctx.causal, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def _check(q, k, v, q_offset) -> None:

@@ -5,11 +5,13 @@ batch-major, so q head ``i`` reads kv head ``i // (Hq/Hkv)``. ``q_offset``
 places the queries at positions ``q_offset .. q_offset+Tq-1`` (decode:
 ``Tq = 1``, ``q_offset = Tk - 1``). Masked scores are ``-inf`` and the
 softmax is taken over the whole row, in float32; the result has q's type.
+:func:`attention_bwd_ref` is its backward, the one the kernel's
+``torch.autograd.Function`` runs on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,3 +53,46 @@ def attention_ref(
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bqk,bkd->bqd", p, vr.float()).to(q.dtype)
 
+
+def attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`attention_ref` (scale
+    ``Dh**-0.5``) for the output gradient ``dout``, in q's, k's and v's types.
+
+    Closed form, in float32: it recomputes ``P`` and ``O = P·V``, then
+    ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP − rowsum(dO∘O))``,
+    ``dQ = dS·K·scale``, ``dK = dSᵀ·Q·scale``. ``P`` and ``dP`` are the two
+    ``[B·Hq, Tq, Tk]`` tensors it holds at once (``dS`` overwrites ``dP``).
+    A kv head's ``dK`` and ``dV`` are the sums over the ``Hq/Hkv`` q heads
+    that read it."""
+    bhq, tq, dh = q.shape
+    bhkv, tk, _ = k.shape
+    group = bhq // bhkv
+    scale = dh ** -0.5
+    qf, do = q.float(), dout.float()
+    kr = k.float().repeat_interleave(group, dim=0)
+    vr = v.float().repeat_interleave(group, dim=0)
+    p = torch.bmm(qf, kr.transpose(1, 2)).mul_(scale)
+    if causal:
+        qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        p.masked_fill_(kpos > qpos, float("-inf"))
+    p.sub_(p.amax(dim=-1, keepdim=True)).exp_()
+    p.div_(p.sum(dim=-1, keepdim=True))
+    delta = (do * torch.bmm(p, vr)).sum(dim=-1, keepdim=True)    # rowsum(dO∘O)
+    dv = torch.bmm(p.transpose(1, 2), do)
+    ds = torch.bmm(do, vr.transpose(1, 2)).sub_(delta).mul_(p)   # dP, then dS in place
+    del p
+    dq = torch.bmm(ds, kr).mul_(scale)
+    dk = torch.bmm(ds.transpose(1, 2), qf).mul_(scale)
+    if group > 1:
+        dk = dk.reshape(bhkv, group, tk, dh).sum(dim=1)
+        dv = dv.reshape(bhkv, group, tk, dh).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

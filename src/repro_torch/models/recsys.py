@@ -89,7 +89,8 @@ def pooled_history_embedding_bag(cfg: DinConfig, params: Params, batch: Dict[str
 
 
 def bce_loss(cfg: DinConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean binary cross-entropy of the click logits (value only)."""
+    """Mean binary cross-entropy of the click logits: the training loss
+    (scoring pools with softmax weights, so it reaches no kernel)."""
     z = forward(cfg, params, batch).float()
     y = batch["label"].float()
     return torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs())))

@@ -3,8 +3,9 @@
 Parameters are stacked over layers like the JAX package's scan pytree:
 ``embed [V, D]``, ``layers`` (each leaf ``[L, ...]``), ``ln_f``, ``lm_head
 [D, V]``. The layer loop is a Python loop over views of the stacked
-tensors. :func:`forward` (prefill and scoring) runs attention through the
-``flash_attention`` kernel on the card, one launch a layer;
+tensors. :func:`forward` (prefill, scoring and training) runs attention
+through the ``flash_attention`` kernel on the card, one launch a layer, and
+is differentiable there (the kernel's backward is its plain version);
 :func:`serve_step` decodes one token against a ``[L, B, Tmax, Hkv, Dh]``
 KV cache, which it updates in place.
 
@@ -160,7 +161,9 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor) -> Tup
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy over ``mask`` (value only)."""
+    """Mean next-token cross-entropy over ``mask``, plus the MoE aux loss:
+    the training loss. On the card its gradient reaches the attention
+    weights through ``flash_attention``'s ``torch.autograd.Function``."""
     logits, aux = forward(cfg, params, batch["tokens"])
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)

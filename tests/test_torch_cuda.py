@@ -516,3 +516,103 @@ def test_cuda_route_breaks_ties_to_the_lower_expert():
     want = route(p, x.reshape(-1, 256), cfg)[2]
     assert bool((torch.isin(want, torch.tensor([2, 5, 9])).sum(dim=1) >= 2).any())
     assert torch.equal(idx, want)
+
+
+# ------------------------------------------------------------- training
+#: tests/test_torch_train.py's bar for the trainer's losses
+LOSS_RTOL = 1e-5
+
+
+def _grad_inputs(dev, seed, dtype, b, hq, hkv, tq, tk, dh):
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.as_tensor(rng.normal(size=(b * h, t, dh)).astype(np.float32), device=dev).to(dtype)
+                     for h, t in ((hq, tq), (hkv, tk), (hkv, tk), (hq, tq)))
+    return q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True), dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_cuda_flash_attention_backward_matches_plain_autograd(dtype, tol, b, hq, hkv, tq, tk, dh, causal, qoff):
+    """The ``autograd.Function`` on the card (the kernel forward, the plain
+    backward) against autograd through the plain version: one launch, none
+    in the backward; float32 within 1e-5 (the CPU tests' bar against
+    ``jax.grad``), bfloat16 within 3e-2."""
+    from repro_torch.kernels.flash_attention import KERNEL, attention_ref, flash_attention
+
+    dev = _cuda_or_skip()
+    q, k, v, dout = _grad_inputs(dev, 12, dtype, b, hq, hkv, tq, tk, dh)
+    before = KERNEL.launches
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=causal, q_offset=qoff), (q, k, v), dout)
+    assert KERNEL.launches == before + 1
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=causal, q_offset=qoff), (q, k, v), dout)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,b,l", EMBEDDING_BAG_SHAPES + ((1_000_000, 18, 4096, 100),))
+def test_cuda_embedding_bag_backward_matches_plain_autograd(v, d, b, l):
+    """The same for ``embedding_bag``, at the JAX tests' shapes and at DIN's
+    item table (1,000,000 x 18, bags of 100): the table's gradient within
+    1e-6, the weights' within 1e-6 of their largest (D-term dot products)."""
+    from repro_torch.kernels.embedding_bag import KERNEL, embedding_bag, embedding_bag_ref
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(13)
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32), device=dev).requires_grad_(True)
+    idx = torch.as_tensor(rng.integers(0, v, size=(b, l)).astype(np.int32), device=dev)
+    w = torch.as_tensor(rng.random((b, l)).astype(np.float32), device=dev).requires_grad_(True)
+    dout = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+    before = KERNEL.launches
+    got_t, got_w = torch.autograd.grad(embedding_bag(table, idx, w), (table, w), dout)
+    assert KERNEL.launches == before + 1
+    want_t, want_w = torch.autograd.grad(embedding_bag_ref(table, idx, w), (table, w), dout)
+    torch.testing.assert_close(got_t, want_t, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got_w, want_w, rtol=0, atol=1e-6 * float(want_w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_lm_gradients_reach_attention_weights():
+    """A loss through ``transformer.forward`` on the card: every layer's
+    wq, wk and wv get a non-zero gradient through ``flash_attention``, and
+    every leaf's gradient equals the CPU's within 1e-5 of its largest entry."""
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import leaves, tree_map, tree_unflatten
+
+    dev = _cuda_or_skip()
+    cfg = tf.TransformerConfig(n_layers=4, d_model=128, n_heads=8, n_kv_heads=2, d_ff=512, vocab=512)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(14).integers(0, 512, size=(4, 65))
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        live = tree_map(lambda p: p.to(device).requires_grad_(True), params)
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=device),
+                 "labels": torch.as_tensor(toks[:, 1:], device=device)}
+        before = KERNEL.launches
+        g = torch.autograd.grad(tf.loss_fn(cfg, live, batch), list(leaves(live)))
+        assert KERNEL.launches == before + (cfg.n_layers if device.type == "cuda" else 0)
+        grads[device.type] = [t.cpu() for t in g]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    attn = tree_unflatten(params, grads["cuda"])["layers"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        assert bool((attn[name].abs().amax(dim=(1, 2)) > 0).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-8b", "din"])
+def test_cuda_reduced_trainer_matches_cpu(arch):
+    """The training launcher's reduced config, 10 steps on the card and on
+    the CPU from the same weights: the logged losses within 1e-5."""
+    from repro_torch.launch.serve import ARCHS
+    from repro_torch.launch.train import RUNNERS
+
+    dev = _cuda_or_skip()
+    run = RUNNERS[ARCHS[arch][0]]
+    card, cpu = run(arch, 10, None, device=dev), run(arch, 10, None, device="cpu")
+    assert card.step == cpu.step == 10
+    np.testing.assert_allclose([m["loss"] for m in card.metrics_log], [m["loss"] for m in cpu.metrics_log],
+                               rtol=LOSS_RTOL)

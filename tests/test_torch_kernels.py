@@ -13,6 +13,7 @@ tests/test_kernels.py). The hand-written kernels themselves are tested on
 the card by tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,10 +36,13 @@ from repro_torch.graphs import generators
 from repro_torch.graphs.structure import padded_neighbors
 from repro_torch.kernels.bsr_spmm import make_bell_matmul
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_auto
+from repro_torch.kernels.embedding_bag import ops as embedding_bag_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_bwd_ref, embedding_bag_ref
 from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_SHAPES
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, mha
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather, spill_tail
 
 # The suite runs in several worker processes at once; one intra-op thread
@@ -343,3 +347,112 @@ def test_flash_attention_head_dim_padding_matches_pallas(monkeypatch, dh):
     want32 = attention_ref(*(torch.as_tensor(a.astype(np.float32)) for a in arrs), causal=True,
                            q_offset=qoff)
     np.testing.assert_allclose(got.float().numpy(), want32.numpy(), rtol=3e-2, atol=3e-2)
+
+
+# ------------------------------------------------------------- backwards
+# The kernels' backwards are plain PyTorch (the JAX package differentiates
+# its oracles; no Pallas kernel has a backward). Bars: attention within
+# 1e-5 of jax.grad in float32 (sums over up to 128 keys in another order);
+# the bag's table gradient within 1e-6, the forward's bar (each entry a sum
+# of at most L products); its weight gradient within 1e-6 of its largest
+# entry, because each entry is a D-term float32 dot product (D up to 130)
+# that XLA and PyTorch sum in another order, so its rounding grows with
+# the sum's size (measured: 1.3e-6 on entries of ~8 at D 64).
+def _attention_inputs(seed, b, hq, hkv, tq, tk, dh):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b * h, t, dh)).astype(np.float32) for h, t in ((hq, tq), (hkv, tk), (hkv, tk))] + [
+        rng.normal(size=(b * hq, tq, dh)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_attention_bwd_ref_matches_jax_grad(b, hq, hkv, tq, tk, dh, causal, qoff):
+    q, k, v, dout = _attention_inputs(5, b, hq, hkv, tq, tk, dh)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_attention_ref(q_, k_, v_, causal=causal, q_offset=qoff),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    got = attention_bwd_ref(*(torch.as_tensor(a) for a in (q, k, v, dout)), causal=causal, q_offset=qoff)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=f"d{name}")
+
+
+def test_attention_bwd_ref_keeps_bf16_types():
+    q, k, v, dout = (torch.as_tensor(a, dtype=torch.bfloat16) for a in _attention_inputs(6, 1, 4, 2, 16, 16, 8))
+    dq, dk, dv = attention_bwd_ref(q, k, v, dout)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+@pytest.mark.parametrize("v,d,b,l", EMBEDDING_BAG_SHAPES)
+def test_embedding_bag_bwd_ref_matches_jax_grad(v, d, b, l):
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    idx[0, :2] = 3  # one row twice in a bag: its gradient adds up
+    w = rng.random((b, l)).astype(np.float32)
+    w[:, -1] = 0.0
+    dout = rng.normal(size=(b, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t_, w_: jax_embedding_bag_ref(t_, jnp.asarray(idx), w_), jnp.asarray(table), jnp.asarray(w))
+    want_t, want_w = vjp(jnp.asarray(dout))
+    got_t, got_w = embedding_bag_bwd_ref(table.shape, torch.as_tensor(idx), torch.as_tensor(w),
+                                         torch.as_tensor(table), torch.as_tensor(dout))
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=1e-6, atol=1e-6)
+    want_w = np.asarray(want_w)
+    np.testing.assert_allclose(got_w.numpy(), want_w, rtol=0, atol=1e-6 * np.abs(want_w).max())
+
+
+def test_embedding_bag_grad_through_plain_version():
+    """Twin of the JAX package's ``test_grad_through_oracle``: exact."""
+    table = torch.ones((10, 4), requires_grad=True)
+    (g,) = torch.autograd.grad(embedding_bag_auto(table, torch.tensor([[1, 2]], dtype=torch.int32),
+                                                  torch.ones((1, 2))).sum(), (table,))
+    assert float(g[1].sum()) == 4.0 and float(g[3].sum()) == 0.0
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_flash_attention_function_wiring(monkeypatch, b, hq, hkv, tq, tk, dh, causal, qoff):
+    """The CUDA branch's ``autograd.Function`` on CPU tensors, with the launch
+    replaced by the plain version: one launch forward, none backward, and
+    the gradients of the plain version's autograd (within 1e-5)."""
+    launches = []
+
+    def plain_launch(route, q, k, v, out, *, causal, q_offset, scale):
+        launches.append(route)
+        out.copy_(attention_ref(q, k, v, causal=causal, q_offset=q_offset, scale=scale))
+
+    monkeypatch.setattr(flash_ops, "_launch", plain_launch)
+    arrs = _attention_inputs(8, b, hq, hkv, tq, tk, dh)
+    q, k, v = (torch.tensor(a, requires_grad=True) for a in arrs[:3])
+    out = flash_ops._FlashAttention.apply(q, k, v, causal, qoff)
+    assert launches == ["ffma"]
+    got = torch.autograd.grad(out, (q, k, v), torch.as_tensor(arrs[3]))
+    assert launches == ["ffma"]
+    qr, kr, vr = (torch.tensor(a, requires_grad=True) for a in arrs[:3])
+    want = torch.autograd.grad(attention_ref(qr, kr, vr, causal=causal, q_offset=qoff), (qr, kr, vr),
+                               torch.as_tensor(arrs[3]))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_function_wiring(monkeypatch):
+    """The same for ``embedding_bag``: gradients of table and weights equal
+    to the plain version's autograd (within 1e-6), one launch forward."""
+    launches = []
+
+    def plain_launch(table, indices, weights, out):
+        launches.append(tuple(out.shape))
+        out.copy_(embedding_bag_ref(table, indices, weights))
+
+    monkeypatch.setattr(embedding_bag_ops, "_launch", plain_launch)
+    rng = np.random.default_rng(9)
+    table = rng.normal(size=(40, 18)).astype(np.float32)
+    idx = torch.as_tensor(rng.integers(0, 40, size=(6, 5)).astype(np.int32))
+    w = rng.random((6, 5)).astype(np.float32)
+    dout = torch.as_tensor(rng.normal(size=(6, 18)).astype(np.float32))
+    t1, w1 = torch.tensor(table, requires_grad=True), torch.tensor(w, requires_grad=True)
+    got = torch.autograd.grad(embedding_bag_ops._EmbeddingBag.apply(t1, idx, w1), (t1, w1), dout)
+    assert launches == [(6, 18)]
+    t2, w2 = torch.tensor(table, requires_grad=True), torch.tensor(w, requires_grad=True)
+    want = torch.autograd.grad(embedding_bag_ref(t2, idx, w2), (t2, w2), dout)
+    for g, ref in zip(got, want):
+        torch.testing.assert_close(g, ref, rtol=1e-6, atol=1e-6)
