@@ -85,7 +85,17 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     with every gradient finite and wq, wk, wv non-zero in every layer;
     (b) ``launch.train`` for the five LM archs and DIN, 40 steps with a
     checkpoint directory under ``build/`` and a fault at step 20, on the
-    card and on the CPU, whose losses the card's must equal.
+    card and on the CPU, whose losses the card's must equal;
+11. after phase 10, the GNNs and MACE: (a) gcn-cora, graphsage-reddit,
+    meshgraphnet and mace at their ``FULL`` widths, random weights drawn on
+    the CPU, on cora_like (2,708 nodes), reddit_like (232,965 nodes, its
+    features resident on the card), a 64x64 mesh and 128 molecules, labels
+    from a DiDiC partition run on the card: one forward held to the CPU and
+    to a second card run (graphsage-reddit sampled through
+    ``NeighborSampler((15, 10))`` on 1,024 nodes, and its full graph once),
+    MACE's energies under a rotation, then 5 trainer steps whose loss must
+    fall; no hand-written kernel is launched; (b) ``launch.train`` for the
+    four archs as in 10b.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -96,7 +106,8 @@ and phase 10's trainer runs on the card
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables and phase 8's uninterrupted, recovered and
 online runs (``frontier_gather``); phase 8's offline replays, the reference
-the online runs are checked against, are read apart and not counted. The
+the online runs are checked against, are read apart and not counted.
+Phase 11's path reaches no kernel (its sums are ``index_add_``). The
 launch counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
@@ -1999,6 +2010,214 @@ def phase10_launchers(dev, main_launches):
     say(json.dumps({"phase": 10, "launchers": out}))
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+GNN_ARCHS = ("gcn-cora", "graphsage-reddit", "meshgraphnet", "mace")
+# Each arch's graph at GNN_SCALE: at 1.0 cora's 2,708 nodes, reddit's
+# 232,965 (Twitter-like, so far fewer than its 114.6 M edges), a 64x64 mesh,
+# 128 molecules of 30 atoms.
+GNN_DATA = {"gcn-cora": "cora_like", "graphsage-reddit": "reddit_like", "meshgraphnet": "mesh", "mace": "molecules"}
+GNN_SCALE = 1.0
+GNN_STEPS = 5                   # phase 11a's trainer steps (cut)
+# Adam's first step moves every weight by about the learning rate: at the
+# launcher's 5e-3, and at 1e-3, the 15-block MeshGraphNet's loss rose after
+# that step (a CPU rehearsal); at 1e-4 every FULL config's loss falls.
+GNN_LR = 1e-4
+# index_add_ on the card sums float32 by atomics, in no fixed order: the
+# card is held to the CPU, and to itself, within this relative bar.
+GNN_CARD_RTOL = 1e-4
+# Phase 11b's bar on all 40 logged-step losses, card against CPU, past the
+# first (held to GNN_CARD_RTOL). MeshGraphNet: a ReLU input within float32
+# rounding of zero parts two runs (tests/test_torch_gnn.py DRIFT_RTOL);
+# MACE's launcher run amplifies rounding tenfold a step while it overshoots
+# (tests/test_torch_mace.py), so after its first logged step its card and
+# CPU runs are not comparable and are checked only to fall.
+GNN_LAUNCH_RTOL = {"gcn-cora": GNN_CARD_RTOL, "graphsage-reddit": GNN_CARD_RTOL, "meshgraphnet": 1e-2,
+                   "mace": None}
+
+
+def _gnn_full(arch, dev):
+    """``arch``'s ``FULL`` config, its weights drawn on the CPU from seed 0,
+    its graph and whole-graph batch (CPU tensors), and the DiDiC seconds:
+    labels are ``parts % d_out`` of a DiDiC partition (k=4, 30 iterations,
+    the launcher's) run on the card; MACE fits seeded random energies."""
+    import importlib
+
+    from repro_torch.core.didic import DidicConfig, didic_partition
+    from repro_torch.data.pipeline import gnn_features
+    from repro_torch.graphs import datasets
+    from repro_torch.launch.serve import ARCHS
+    from repro_torch.models import gnn, mace
+
+    cfg = importlib.import_module(ARCHS[arch][1]).FULL
+    g = datasets.load(GNN_DATA[arch], scale=GNN_SCALE)
+    gen = torch.Generator().manual_seed(0)
+    didic_s = 0.0
+    if arch == "mace":
+        params = mace.init(cfg, gen, device="cpu")
+        n_mols = int(g.node_attrs["mol_id"].max()) + 1
+        batch = {k: g.node_attrs[k] for k in ("species", "pos", "mol_id")}
+        batch.update(senders=g.senders, receivers=g.receivers,
+                     target=np.random.default_rng(0).normal(size=n_mols).astype(np.float32))
+    else:
+        (parts, _), didic_s = once(lambda: didic_partition(g, DidicConfig(k=4, iterations=30), seed=0,
+                                                           device=dev))
+        x, labels = gnn_features(g.n_nodes, cfg.d_in, cfg.d_out, parts_hint=parts)
+        s, r, _ = g.undirected
+        params = gnn.init(cfg, gen, device="cpu")
+        batch = {"x": x, "labels": labels, "senders": s, "receivers": r}
+        if cfg.kind == "meshgraphnet":
+            batch["edge_feat"] = torch.randn((s.shape[0], cfg.d_edge_in), generator=torch.Generator().manual_seed(3))
+    return cfg, g, params, {k: torch.as_tensor(v) for k, v in batch.items()}, didic_s
+
+
+def _rel_gap(a, b) -> float:
+    return float(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30))
+
+
+def phase11_gnn(arch, dev, smi):
+    """``arch`` at its ``FULL`` width on its ``GNN_DATA`` graph: one forward
+    (graphsage-reddit: a sampled 1,024-node batch, fanout 15-10, and the
+    full graph once) held to the CPU and to a second card run, then
+    ``GNN_STEPS`` trainer steps (graphsage-reddit: a new sampled batch a
+    step); MACE's energies also under a rotation."""
+    import gc
+    import itertools
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.launch.train import gnn_loss, sage_sampled_batch
+    from repro_torch.models import mace
+    from repro_torch.optim.adamw import AdamWConfig, leaves, tree_map
+    from repro_torch.train import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, g, p_cpu, b_cpu, didic_s = _gnn_full(arch, dev)
+    params = tree_map(lambda t: t.to(dev), p_cpu)
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    setup_s = time.perf_counter() - t0
+    loss_fn = lambda p, b: gnn_loss(cfg, p, b)  # noqa: E731
+    n_items = g.n_nodes
+    record = {"phase": 11, "arch": arch, "card": smi, "nodes": g.n_nodes, "edges": int(b_cpu["senders"].shape[0]),
+              "parameters": sum(t.numel() for t in leaves(p_cpu)), "setup_s": setup_s, "didic_s": didic_s}
+    kernels.reset_launch_counts()
+    if arch == "graphsage-reddit":
+        shape = GNN_SHAPES["minibatch_lg"]
+        ns = NeighborSampler(g, shape["fanout"], seed=0)
+        batches = [sage_sampled_batch(ns.sample_batch(nodes), b_dev["x"], b_dev["labels"])
+                   for nodes in ns.batches(shape["batch_nodes"], GNN_STEPS, seed=1)]
+        fwd_batch, data = batches[0], iter(batches)
+        n_items = shape["batch_nodes"]
+        record["sampled_rows"] = [int(b["feats"].shape[0]) for b in batches]
+        with torch.no_grad():
+            full_dev, full_s = once(lambda: loss_fn(params, b_dev))
+            full_cpu = loss_fn(p_cpu, b_cpu)
+        check(bool(torch.isfinite(full_dev)) and _rel_gap(full_dev, full_cpu) <= GNN_CARD_RTOL,
+              f"phase 11: {arch} full-graph forward ({g.n_nodes:,} nodes, {record['edges']:,} edges): loss "
+              f"{float(full_dev):.6f} on the card, {float(full_cpu):.6f} on the CPU (gap {_rel_gap(full_dev, full_cpu):.3g})")
+        record["full_forward_ms"] = full_s * 1e3
+    else:
+        fwd_batch, data = b_dev, itertools.repeat(b_dev)
+    with torch.no_grad():
+        fwd_ms, loss_dev = time_cuda(lambda: loss_fn(params, fwd_batch), reps=5, warmup=1)
+        b2b_ms = time_cuda(lambda: loss_fn(params, fwd_batch), reps=3, warmup=0, inner=B2B)[0]
+        again = loss_fn(params, fwd_batch)
+        loss_cpu = loss_fn(p_cpu, {k: v.cpu() for k, v in fwd_batch.items()})
+    gaps = (_rel_gap(loss_dev, loss_cpu), _rel_gap(again, loss_dev))
+    check(bool(torch.isfinite(loss_dev)) and max(gaps) <= GNN_CARD_RTOL,
+          f"phase 11: {arch} forward loss {float(loss_dev):.6f} on the card, {float(loss_cpu):.6f} on the CPU "
+          f"(gap {gaps[0]:.3g}), a second card run {gaps[1]:.3g} apart (bar {GNN_CARD_RTOL:g})")
+    if arch == "mace":
+        q, _ = np.linalg.qr(np.random.default_rng(0).normal(size=(3, 3)))
+        q[:, 0] *= np.sign(np.linalg.det(q))
+        args = [b_dev[k] for k in ("species", "pos", "senders", "receivers", "mol_id")]
+        with torch.no_grad():
+            e, _ = mace.forward(cfg, params, *args, b_dev["target"].shape[0])
+            args[1] = args[1] @ torch.as_tensor(q.astype(np.float32), device=dev)
+            e_rot, _ = mace.forward(cfg, params, *args, b_dev["target"].shape[0])
+        rot = float((e_rot - e).abs().max() / e.abs().max())
+        check(rot <= 1e-4, f"phase 11: mace energies of rotated positions within {rot:.3g} of the originals "
+                           f"(relative to the largest, bar 1e-4)")
+        record["rotation_gap"] = rot
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(loss_fn, params, AdamWConfig(lr=GNN_LR, warmup_steps=1, total_steps=GNN_STEPS, weight_decay=0.0),
+                 TrainerConfig(total_steps=GNN_STEPS, log_every=1))
+    tr.fit(data)
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    losses = [m["loss"] for m in tr.metrics_log]
+    step_s = [m["step_time_s"] for m in tr.metrics_log]
+    check(len(losses) == GNN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase 11: {arch} {GNN_STEPS} trainer steps, losses finite, step {GNN_STEPS}'s below step 1's "
+          f"({', '.join(f'{x:.4f}' for x in losses)})")
+    check(not any(counts.values()), f"phase 11: {arch} launched no hand-written kernel (segment sums only)")
+    median_s = statistics.median(step_s)
+    record.update({
+        "forward_ms": fwd_ms, "forward_b2b_ms": b2b_ms, "loss": float(loss_dev), "loss_cpu": float(loss_cpu), "card_cpu_gap": gaps[0],
+        "card_card_gap": gaps[1], "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+        "median_step_ms": median_s * 1e3, "items_per_s_forward": n_items / (fwd_ms / 1e3),
+        "items_per_s_step": n_items / median_s, "peak_device_bytes": peak,
+        "redispatches": tr.straggler.redispatches,
+    })
+    say(f"phase 11: {arch} ({cfg.name}, {record['parameters']:,} parameters; {g.n_nodes:,} nodes): forward "
+        f"{fwd_ms:.3f} ms, {b2b_ms:.3f} b2b ({record['items_per_s_forward']:,.0f} "
+        f"{'atoms' if arch == 'mace' else 'nodes'}/s), step "
+        f"{median_s * 1e3:.3f} ms median, peak {peak:,} B")
+    del tr, params, b_dev, fwd_batch, data
+    say(json.dumps(record))
+
+
+def phase11_launchers(dev, smi):
+    """``launch.train`` on the card and on the CPU for the four GNN archs,
+    ``LAUNCH_STEPS`` steps each with a checkpoint directory under ``build/``
+    and a fault at step ``LAUNCH_FAULT_STEP``."""
+    import shutil
+
+    from repro_torch.launch.train import train_gnn
+    from repro_torch.train.fault import FaultInjector
+
+    out = {}
+    for arch in GNN_ARCHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            ckpt_dir = os.path.join(ROOT, "build", "phase11_ckpt", f"{arch}-{device}")
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            t0 = time.perf_counter()
+            tr = train_gnn(arch, LAUNCH_STEPS, ckpt_dir, device=dev if device == "cuda" else "cpu",
+                           fault_injector=FaultInjector(fail_at_steps=(LAUNCH_FAULT_STEP,)))
+            wall = time.perf_counter() - t0
+            runs[device] = (tr, wall)
+            check(tr.step == LAUNCH_STEPS and tr.recoveries == 1
+                  and f"ckpt_{LAUNCH_STEPS:08d}.manifest.json" in os.listdir(ckpt_dir),
+                  f"phase 11: launch.train {arch} on {device}: recovered from the fault at step {LAUNCH_FAULT_STEP} "
+                  f"and ended at step {LAUNCH_STEPS} with its checkpoint ({wall:.2f} s)")
+            shutil.rmtree(ckpt_dir)
+        losses = [m["loss"] for m in runs["cuda"][0].metrics_log]
+        cpu_losses = [m["loss"] for m in runs["cpu"][0].metrics_log]
+        first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        check(all(np.isfinite(losses)) and last < first,
+              f"phase 11: launch.train {arch} on the card: mean loss of the last 3 logged steps {last:.4f} < "
+              f"the first 3's {first:.4f}")
+        gaps = [_rel_gap(a, b) for a, b in zip(losses, cpu_losses)]
+        rtol = GNN_LAUNCH_RTOL[arch]
+        check(len(losses) == len(cpu_losses) and gaps[0] <= GNN_CARD_RTOL and (rtol is None or max(gaps) <= rtol),
+              f"phase 11: launch.train {arch}: the card's first logged loss within {gaps[0]:.3g} of the CPU's "
+              f"(bar {GNN_CARD_RTOL:g}); over all {len(losses)} at most {max(gaps):.3g} apart (bar {rtol})")
+        out[arch] = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "losses": losses, "cpu_losses": cpu_losses,
+                     "rel_gaps": gaps, "recoveries": runs["cuda"][0].recoveries,
+                     "redispatches": runs["cuda"][0].straggler.redispatches}
+        say(f"phase 11: launch.train {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, card {runs['cuda'][1]:.2f} s, "
+            f"CPU {runs['cpu'][1]:.2f} s, gaps {gaps[0]:.3g} first, {max(gaps):.3g} largest")
+    say(json.dumps({"phase": 11, "card": smi, "launchers": out}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -2065,6 +2284,12 @@ def main() -> int:
     say(f"phase 10 granite done at {time.perf_counter() - t_start:.1f} s")
     phase10_launchers(dev, main_launches)
     say(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    t11 = time.perf_counter()
+    for arch in GNN_ARCHS:
+        phase11_gnn(arch, dev, smi)
+    say(f"phase 11a done at {time.perf_counter() - t_start:.1f} s")
+    phase11_launchers(dev, smi)
+    say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t11:.1f} s)")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "

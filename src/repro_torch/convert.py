@@ -22,7 +22,9 @@ __all__ = [
     "block_ell_from_arrays",
     "didic_state_from_arrays",
     "din_params_from_arrays",
+    "gnn_params_from_arrays",
     "graph_from_arrays",
+    "mace_params_from_arrays",
     "oplog_from_arrays",
     "padded_neighbors_from_arrays",
     "transformer_params_from_arrays",
@@ -109,7 +111,7 @@ _MOE_KEYS = {"router"} | _SWIGLU_KEYS
 def _missing(tree: Dict[str, Any], want: set, what: str) -> None:
     missing = want - set(tree)
     if missing:
-        raise ValueError(f"not a transformer pytree: {what} lacks {sorted(missing)}")
+        raise ValueError(f"not a parameter pytree: {what} lacks {sorted(missing)}")
 
 
 def transformer_params_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
@@ -151,3 +153,39 @@ def adamw_state_from_arrays(tree: Dict[str, Any], device=None) -> Dict[str, Any]
         "v": _tree(tree["v"], dev),
         "step": torch.as_tensor(np.array(tree["step"], dtype=np.int32), device=dev),
     }
+
+
+_MLP2 = {"w0", "b0", "w1", "b1"}
+_GNN_KEYS = {
+    "gcn": lambda n: {f"w{i}" for i in range(n)},
+    "sage": lambda n: {f"{w}{i}" for i in range(n) for w in ("w_self", "w_nbr")},
+    "meshgraphnet": lambda n: {"enc_node", "enc_edge", "dec", "proc"},
+}
+
+
+def gnn_params_from_arrays(tree: Dict[str, Any], kind: str, n_layers: int, device=None) -> Dict[str, Any]:
+    """The JAX package's GCN, GraphSAGE or MeshGraphNet pytree (``kind`` as
+    in ``GnnConfig``) → the port's parameters, same names and orientation;
+    MeshGraphNet's processor stays stacked ``[n_layers, ...]``."""
+    want = _GNN_KEYS[kind](n_layers)
+    if set(tree) != want:
+        raise ValueError(f"not a {kind} pytree of {n_layers} layers: keys {sorted(tree)}, want {sorted(want)}")
+    if kind == "meshgraphnet":
+        proc = tree["proc"]
+        if set(proc) != {"edge_mlp", "node_mlp", "ln_e", "ln_n"} or any(
+                np.shape(leaf)[0] != n_layers for sub in proc.values() for leaf in sub.values()):
+            raise ValueError(f"not a stacked [{n_layers}, ...] MeshGraphNet processor")
+        for name in ("enc_node", "enc_edge", "dec"):
+            _missing(tree[name], _MLP2, name)
+    return _tree(tree, resolve_device(device))
+
+
+def mace_params_from_arrays(tree: Dict[str, Any], n_layers: int, device=None) -> Dict[str, Any]:
+    """The JAX package's MACE pytree → the port's parameters."""
+    want = {"species_embed", "readout"} | {f"layer{i}" for i in range(n_layers)}
+    if set(tree) != want:
+        raise ValueError(f"not a MACE pytree of {n_layers} layers: keys {sorted(tree)}")
+    for i in range(n_layers):
+        _missing(tree[f"layer{i}"], {"radial_s", "radial_v", "radial_t", "mix_s", "mix_v", "mix_t"},
+                 f"layer{i}")
+    return _tree(tree, resolve_device(device))

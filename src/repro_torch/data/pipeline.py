@@ -1,16 +1,17 @@
-"""Synthetic batches for the LM and DIN paths (twin of ``repro.data.pipeline``).
+"""Synthetic batches for the LM, DIN and GNN paths (twin of
+``repro.data.pipeline``).
 
 Numpy only, written draw for draw like the JAX package's module, so the
 same seed gives the same arrays: a Zipf token stream with local n-gram
-structure for the LMs and click batches for DIN. Batches stay numpy; the
-caller moves them to its device. (The GNN features and the multi-host
-batch slice come with the GNN and multi-device slices.)
+structure for the LMs, click batches for DIN, node features and labels
+for the GNNs, and the per-host slice of a global batch. Batches stay
+numpy; the caller moves them to its device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -53,6 +54,15 @@ def lm_token_stream(cfg: LmDataConfig) -> Iterator[Dict[str, np.ndarray]]:
         }
 
 
+def host_shard(batch: Dict[str, np.ndarray], process_index: int = 0, process_count: int = 1):
+    """Per-host slice of the global batch (multi-host data loading)."""
+    out = {}
+    for k, x in batch.items():
+        per = x.shape[0] // process_count
+        out[k] = x[process_index * per : (process_index + 1) * per]
+    return out
+
+
 def din_batch(
     batch: int, seq_len: int, n_items: int, n_cats: int, seed: int = 0
 ) -> Dict[str, np.ndarray]:
@@ -82,3 +92,19 @@ def din_stream(batch: int, seq_len: int, n_items: int, n_cats: int, seed: int = 
         yield b
         i += 1
 
+
+
+def gnn_features(n_nodes: int, d_feat: int, n_classes: int, parts_hint: Optional[np.ndarray] = None,
+                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Node features ``[n_nodes, d_feat]`` float32 and int32 labels: a
+    class centre plus noise, labels ``parts_hint % n_classes`` where given
+    (a partition makes the task follow the graph's communities), else
+    uniform draws."""
+    rng = np.random.default_rng(seed)
+    labels = (
+        parts_hint % n_classes if parts_hint is not None
+        else rng.integers(0, n_classes, size=n_nodes)
+    ).astype(np.int32)
+    centers = rng.normal(0, 1.0, size=(n_classes, d_feat))
+    x = centers[labels] + rng.normal(0, 2.0, size=(n_nodes, d_feat))
+    return x.astype(np.float32), labels

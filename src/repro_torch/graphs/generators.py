@@ -5,7 +5,9 @@ Twin of ``repro.graphs.generators``: (a) a synthetic *file system* tree
 network (785 891 V / 1 621 138 E, vertex density concentrated at five
 cities, weighted edges = travel time), and (c) a *Twitter* crawl
 (611 643 V / 851 799 E, scale-free out-degree), plus the planted
-two-community graph used by the tests.
+two-community graph used by the tests and the small graphs behind the GNN
+and MACE shapes (a random graph, a grid, a triangulated mesh and a batch
+of molecules).
 
 The code is the same vectorized numpy as the JAX package's, draw for draw,
 so for one ``(scale, seed)`` both packages build identical arrays (the
@@ -26,6 +28,10 @@ __all__ = [
     "gis_romania",
     "twitter_social",
     "two_cluster",
+    "random_graph",
+    "grid_graph",
+    "molecule_batch",
+    "mesh_graph",
     "FS_ORG", "FS_USER", "FS_FOLDER", "FS_FILE", "FS_EVENT",
 ]
 
@@ -331,7 +337,7 @@ def twitter_social(scale: float = 0.1, seed: int = 0) -> Graph:
 
 
 # --------------------------------------------------------------------------
-# Planted two-community graph for tests
+# Small graphs for tests / GNN shapes
 # --------------------------------------------------------------------------
 def two_cluster(n_per: int = 64, p_in: float = 0.3, p_out: float = 0.01, seed: int = 0) -> Graph:
     """Planted 2-community graph — DiDiC must recover the communities."""
@@ -347,4 +353,78 @@ def two_cluster(n_per: int = 64, p_in: float = 0.3, p_out: float = 0.01, seed: i
         n_nodes=n, senders=s.astype(np.int32), receivers=r.astype(np.int32),
         edge_weight=np.ones(s.shape[0], dtype=np.float32),
         node_attrs={"block": block}, name="two_cluster",
+    )
+
+
+def random_graph(n: int, avg_degree: float = 4.0, seed: int = 0) -> Graph:
+    rng = np.random.default_rng(seed)
+    e = int(n * avg_degree / 2)
+    s = rng.integers(0, n, size=e)
+    r = rng.integers(0, n, size=e)
+    keep = s != r
+    return Graph(
+        n_nodes=n, senders=s[keep].astype(np.int32), receivers=r[keep].astype(np.int32),
+        edge_weight=np.ones(int(keep.sum()), dtype=np.float32), name="random",
+    )
+
+
+def grid_graph(rows: int, cols: int) -> Graph:
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    s = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    r = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    return Graph(
+        n_nodes=rows * cols, senders=s.astype(np.int32), receivers=r.astype(np.int32),
+        edge_weight=np.ones(s.shape[0], dtype=np.float32), name="grid",
+    )
+
+
+def molecule_batch(
+    n_mols: int = 128, atoms_per_mol: int = 30, edges_per_mol: int = 64, seed: int = 0,
+    cutoff: float = 1.6,
+) -> Graph:
+    """Batched small molecules: random 3D point clouds with radius edges,
+    one disjoint-union graph (the MACE ``molecule`` shape: 30 atoms, ~64
+    edges, 128 molecules). ``node_attrs`` holds ``pos``, ``species`` and
+    ``mol_id``."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(0, 1.0, size=(n_mols, atoms_per_mol, 3)).astype(np.float32)
+    species = rng.integers(0, 4, size=(n_mols, atoms_per_mol))
+    senders, receivers = [], []
+    d = np.linalg.norm(pos[:, :, None, :] - pos[:, None, :, :], axis=-1)
+    np.einsum("mii->mi", d)[:] = np.inf
+    for m in range(n_mols):
+        sm, rm = np.nonzero(d[m] < cutoff)
+        if sm.shape[0] > edges_per_mol * 2:
+            sel = np.argsort(d[m][sm, rm])[: edges_per_mol * 2]
+            sm, rm = sm[sel], rm[sel]
+        senders.append(sm + m * atoms_per_mol)
+        receivers.append(rm + m * atoms_per_mol)
+    s = np.concatenate(senders)
+    r = np.concatenate(receivers)
+    return Graph(
+        n_nodes=n_mols * atoms_per_mol,
+        senders=s.astype(np.int32), receivers=r.astype(np.int32),
+        edge_weight=np.ones(s.shape[0], dtype=np.float32),
+        node_attrs={
+            "pos": pos.reshape(-1, 3),
+            "species": species.reshape(-1).astype(np.int32),
+            "mol_id": np.repeat(np.arange(n_mols), atoms_per_mol).astype(np.int32),
+        },
+        name="molecules",
+    )
+
+
+def mesh_graph(rows: int, cols: int, seed: int = 0) -> Graph:
+    """Triangulated 2D simulation mesh (MeshGraphNet's graphs)."""
+    g = grid_graph(rows, cols)
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    s = np.concatenate([g.senders, idx[:-1, :-1].ravel().astype(np.int32)])
+    r = np.concatenate([g.receivers, idx[1:, 1:].ravel().astype(np.int32)])
+    rng = np.random.default_rng(seed)
+    xy = np.stack(np.meshgrid(np.arange(cols), np.arange(rows)), -1).reshape(-1, 2)
+    return Graph(
+        n_nodes=rows * cols, senders=s, receivers=r,
+        edge_weight=np.ones(s.shape[0], dtype=np.float32),
+        node_attrs={"pos": xy.astype(np.float32) + rng.normal(0, 0.05, xy.shape).astype(np.float32)},
+        name="mesh",
     )

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch import resolve_device
 
-#: arch id → (family, config module) of the archs the port can run.
+#: arch id → (family, config module) of every arch; the ``gnn`` family is
+#: trained only (``launch.train``), as in the JAX package.
 ARCHS = {
     "granite-3-8b": ("lm", "repro_torch.configs.granite_3_8b"),
     "yi-34b": ("lm", "repro_torch.configs.yi_34b"),
@@ -36,6 +37,10 @@ ARCHS = {
     "deepseek-moe-16b": ("lm", "repro_torch.configs.deepseek_moe_16b"),
     "qwen3-moe-30b-a3b": ("lm", "repro_torch.configs.qwen3_moe_30b_a3b"),
     "din": ("recsys", "repro_torch.configs.din"),
+    "gcn-cora": ("gnn", "repro_torch.configs.gcn_cora"),
+    "graphsage-reddit": ("gnn", "repro_torch.configs.graphsage_reddit"),
+    "meshgraphnet": ("gnn", "repro_torch.configs.meshgraphnet"),
+    "mace": ("gnn", "repro_torch.configs.mace"),
 }
 
 
@@ -157,13 +162,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         serve_graph(args.requests, args.arrival, device=args.device)
         return
     if args.arch not in ARCHS:
-        raise NotImplementedError(
-            f"--arch {args.arch}: the port runs {sorted(ARCHS)}; other configs are not "
-            "ported yet (ROADMAP, queue A item 12)")
-    if ARCHS[args.arch][0] == "lm":
+        raise KeyError(f"unknown arch {args.arch!r}; have {sorted(ARCHS)}")
+    family = ARCHS[args.arch][0]
+    if family == "lm":
         serve_lm(args.arch, args.requests, args.device)
-    else:
+    elif family == "recsys":
         serve_din(args.requests, args.device)
+    else:
+        raise SystemExit(f"{args.arch} ({family}) has no serving path; use train")
 
 
 if __name__ == "__main__":

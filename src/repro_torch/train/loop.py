@@ -74,7 +74,10 @@ class Trainer:
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss = self.loss_fn(live, batch)
-            grads = torch.autograd.grad(loss, list(adamw.leaves(live)))
+            # A leaf the loss does not reach gets a zero gradient, as under
+            # ``jax.value_and_grad``, and AdamW still decays it.
+            grads = torch.autograd.grad(loss, list(adamw.leaves(live)), allow_unused=True,
+                                        materialize_grads=True)
         grads = adamw.tree_unflatten(live, grads)
         if self.cfg.bf16_grads:
             # gradient compression: bf16 for the cross-replica reduction,

@@ -7,6 +7,8 @@ so it runs on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from repro_torch.kernels.bsr_spmm import bell_matmul_ref, make_bell_matmul
 from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_SHAPES
 from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
 from repro_torch.kernels.frontier import make_frontier_gather
+from repro_torch.optim.adamw import tree_map
 
 
 @pytest.mark.cuda
@@ -616,3 +619,87 @@ def test_cuda_reduced_trainer_matches_cpu(arch):
     assert card.step == cpu.step == 10
     np.testing.assert_allclose([m["loss"] for m in card.metrics_log], [m["loss"] for m in cpu.metrics_log],
                                rtol=LOSS_RTOL)
+
+
+#: the GNN and MACE card-against-CPU bar: ``index_add_`` on the card sums
+#: float32 by atomics, in no fixed order (and cuBLAS reduces in another
+#: order than the CPU), so the card is held to the CPU, and to itself, within
+#: 1e-4 relative, not bit for bit
+GNN_CARD_RTOL = 1e-4
+#: MeshGraphNet's and MACE's launcher runs after step 5, where a ReLU input
+#: within rounding of zero, or MACE's overshooting steps, part two float32
+#: runs (tests/test_torch_gnn.py, tests/test_torch_mace.py DRIFT_RTOL)
+GNN_DRIFT_RTOL = 1e-2
+
+
+def _gnn_forwards(dev):
+    """GCN, GraphSAGE (full and sampled), MeshGraphNet and MACE outputs on
+    ``dev``, from weights and inputs drawn on the CPU."""
+    from repro_torch.graphs import datasets
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.models import gnn, mace
+
+    g = datasets.load("cora_like", scale=0.2)
+    s, r, _ = (torch.as_tensor(a, device=dev) for a in g.undirected)
+    x_np = np.random.default_rng(0).normal(size=(g.n_nodes, 24)).astype(np.float32)
+    x = torch.as_tensor(x_np, device=dev)
+    out = {}
+    for kind in ("gcn", "sage", "meshgraphnet"):
+        cfg = gnn.GnnConfig(kind=kind, n_layers=3, d_in=24, d_hidden=32, d_out=5, d_edge_in=4)
+        p = tree_map(lambda t: t.to(dev), gnn.init(cfg, torch.Generator().manual_seed(1), device="cpu"))
+        if kind == "gcn":
+            out[kind] = gnn.gcn_forward(cfg, p, x, s, r)
+        elif kind == "sage":
+            out[kind] = gnn.sage_forward_full(cfg, p, x, s, r)
+            blocks = NeighborSampler(g, (5, 3), seed=0).sample_batch(np.arange(64))
+            cfg2 = dataclasses.replace(cfg, n_layers=2)
+            out["sage_sampled"] = gnn.sage_forward_sampled(
+                cfg2, p, [torch.as_tensor(x_np[blocks[0].src_nodes], device=dev)],
+                [torch.as_tensor(b.neighbors, device=dev) for b in blocks],
+                [torch.as_tensor(b.mask, device=dev) for b in blocks], [b.n_targets for b in blocks])
+        else:
+            ef = torch.randn((s.shape[0], 4), generator=torch.Generator().manual_seed(2)).to(dev)
+            out[kind] = gnn.mgn_forward(cfg, p, x, ef, s, r)
+    mol = datasets.load("molecules", scale=0.1)
+    cfg = mace.MaceConfig(d_hidden=32, n_layers=2)
+    p = tree_map(lambda t: t.to(dev), mace.init(cfg, torch.Generator().manual_seed(3), device="cpu"))
+    args = [torch.as_tensor(a, device=dev) for a in (mol.node_attrs["species"], mol.node_attrs["pos"],
+                                                     mol.senders, mol.receivers, mol.node_attrs["mol_id"])]
+    out["mace"], out["mace_s"] = mace.forward(cfg, p, *args, 12)
+    q, _ = np.linalg.qr(np.random.default_rng(0).normal(size=(3, 3)))
+    q[:, 0] *= np.sign(np.linalg.det(q))
+    args[1] = args[1] @ torch.as_tensor(q.astype(np.float32), device=dev)
+    out["mace_rotated"], _ = mace.forward(cfg, p, *args, 12)
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_and_mace_forwards_match_cpu():
+    """Each GNN forward and MACE's energies on the card against the CPU and
+    against a second card run, within ``GNN_CARD_RTOL``; MACE's energy of
+    rotated positions equal within 1e-4, as on the CPU."""
+    dev = _cuda_or_skip()
+    card, again, cpu = _gnn_forwards(dev), _gnn_forwards(dev), _gnn_forwards(torch.device("cpu"))
+    for name, want in cpu.items():
+        for got in (card[name], again[name]):
+            assert torch.isfinite(got).all(), name
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=GNN_CARD_RTOL, atol=GNN_CARD_RTOL * scale, msg=name)
+    torch.testing.assert_close(card["mace_rotated"], card["mace"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,exact", [("gcn-cora", 10), ("graphsage-reddit", 10), ("meshgraphnet", 5),
+                                        ("mace", 5)])
+def test_cuda_gnn_launcher_trainer_matches_cpu(arch, exact):
+    """The GNN launcher's task, 10 steps on the card and on the CPU from the
+    same weights and labels: the losses within ``GNN_CARD_RTOL`` over the
+    first ``exact`` steps, all within ``GNN_DRIFT_RTOL``."""
+    from repro_torch.launch.train import train_gnn
+
+    dev = _cuda_or_skip()
+    card, cpu = train_gnn(arch, 10, None, device=dev), train_gnn(arch, 10, None, device="cpu")
+    assert card.step == cpu.step == 10
+    got, want = [m["loss"] for m in card.metrics_log], [m["loss"] for m in cpu.metrics_log]
+    np.testing.assert_allclose(got[:exact], want[:exact], rtol=GNN_CARD_RTOL)
+    np.testing.assert_allclose(got, want, rtol=GNN_DRIFT_RTOL)

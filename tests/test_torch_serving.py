@@ -103,14 +103,21 @@ def test_engine_and_serve_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["graph", "gcn-cora", "mace"])
-def test_serve_refuses_what_is_not_ported(arch, capsys):
-    """An arch the port lacks is refused, naming its ROADMAP item; ``graph``
-    (online graph serving) is ported and serves instead."""
+def test_serve_refuses_what_is_not_ported(arch, capsys, monkeypatch):
+    """A GNN arch has no serving path and is refused with the JAX
+    launcher's message, before any server starts; ``graph`` (online graph
+    serving) serves instead."""
     if arch == "graph":
         serve.main(["--arch", arch, "--device", "cpu", "--requests", "8"])
         assert capsys.readouterr().out.startswith("[serve] graph/uniform: 8 ops in ")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+
+    def no_server(*args, **kwargs):
+        raise AssertionError("a GNN arch reached a server")
+
+    monkeypatch.setattr(serve, "serve_din", no_server)
+    monkeypatch.setattr(serve, "serve_lm", no_server)
+    with pytest.raises(SystemExit, match=f"^{arch} \\(gnn\\) has no serving path; use train$"):
         serve.main(["--arch", arch, "--device", "cpu"])
 
 

@@ -501,6 +501,31 @@ def test_redispatched_step_equals_single_step():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+def test_unused_leaf_gets_zero_gradient_and_decays_as_in_jax():
+    """A leaf the loss does not reach: the JAX trainer gives it a zero
+    gradient and AdamW decays it; the port's trainer must too (it used to
+    raise in ``torch.autograd.grad``)."""
+    rng = np.random.default_rng(0)
+    p = {"a": rng.normal(size=(3, 2)).astype(np.float32), "unused": {"b": np.ones(4, np.float32)}}
+    x = rng.normal(size=(5, 3)).astype(np.float32)
+    opt = dict(lr=1e-2, warmup_steps=2, weight_decay=0.1)
+    jtr = JaxTrainer(lambda q, _: jnp.sum((jnp.asarray(x) @ q["a"]) ** 2), jax.tree.map(jnp.asarray, p),
+                     jax_adamw.AdamWConfig(**opt), JaxTrainerConfig(total_steps=10, log_every=1))
+    jtr.fit(iter(lambda: {"_": jnp.zeros(())}, None))
+    xt = torch.as_tensor(x)
+    tr = Trainer(lambda q, _: torch.sum((xt @ q["a"]) ** 2), _port_tree(p), adamw.AdamWConfig(**opt),
+                 TrainerConfig(total_steps=10, log_every=1))
+    tr.fit(iter(lambda: {}, None))
+    assert tr.step == jtr.step == 10
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([m[key] for m in tr.metrics_log], [m[key] for m in jtr.metrics_log],
+                                   rtol=LOSS_RTOL, err_msg=key)
+    b, jb = tr.state["params"]["unused"]["b"].numpy(), np.asarray(jtr.state["params"]["unused"]["b"])
+    assert np.all(b < 1) and np.all(jb < 1)
+    np.testing.assert_allclose(b, jb, rtol=1e-6)
+    assert not bool(tr.state["opt"]["m"]["unused"]["b"].any()) and not bool(tr.state["opt"]["v"]["unused"]["b"].any())
+
+
 def test_jax_train_state_resumed_by_port():
     """A JAX train state after 5 steps, carried over by ``convert``, trains
     on in the port like the JAX trainer's own steps 6 to 10."""
@@ -586,7 +611,8 @@ class TestTrainerFaultTolerance:
 
 
 # ---------------------------------------------------------------- launchers
-@pytest.mark.parametrize("arch", ["granite-3-8b", "deepseek-moe-16b", "din"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "deepseek-moe-16b", "din", "gcn-cora", "graphsage-reddit",
+                                  "meshgraphnet", "mace"])
 def test_launch_train_on_cpu(arch, tmp_path):
     tr = launch_train.main(["--arch", arch, "--steps", "20", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     losses = [m["loss"] for m in tr.metrics_log]
@@ -602,9 +628,9 @@ def test_launch_train_recovers_from_fault(tmp_path):
     assert np.isfinite(tr.metrics_log[-1]["loss"])
 
 
-@pytest.mark.parametrize("arch", ["gcn-cora", "graphsage-reddit", "meshgraphnet", "mace"])
+@pytest.mark.parametrize("arch", ["no-such-arch"])
 def test_launch_train_refuses_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(KeyError, match=arch):
         launch_train.main(["--arch", arch, "--device", "cpu"])
 
 
