@@ -95,7 +95,20 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     ``NeighborSampler((15, 10))`` on 1,024 nodes, and its full graph once),
     MACE's energies under a rotation, then 5 trainer steps whose loss must
     fall; no hand-written kernel is launched; (b) ``launch.train`` for the
-    four archs as in 10b.
+    four archs as in 10b;
+12. after phase 11, the partitioned service on a process group: an NCCL
+    group of one rank on the card, from phase 2's DiDiC maps at
+    ``scale=1.0`` (the graphs kept as host arrays): cold sharded replays of
+    filesystem's and Twitter's 10,000-op logs bit-equal to the batched
+    results phase 2 held, and of the first 1,000 ops of GIS's phase-6 log
+    (per-op counters equal to phase 6's, all four to a batched replay),
+    through ``frontier_gather``; on GIS the resident fold against the
+    random map and one structural slice with a partial redo, bit-equal to
+    a cold batched replay of the grown graph; degraded mode (shard 0
+    failed); the halo-exchange DiDiC on Twitter against random and the
+    single-device run; the device-scan ``least_traffic`` log against the
+    host's; two mesh-runtime slices on Twitter against the meshless
+    runtime.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -104,8 +117,9 @@ the granite forward call of phase 5, the four forward calls of phase 9
 and phase 10's trainer runs on the card
 (``flash_attention``), every replay
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
-phase 7's replays and tables and phase 8's uninterrupted, recovered and
-online runs (``frontier_gather``); phase 8's offline replays, the reference
+phase 7's replays and tables, phase 8's uninterrupted, recovered and
+online runs and phase 12's sharded GIS replays (``frontier_gather``);
+phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``). The
 launch counts are set to 0 just before each of them and read just after. Each
@@ -437,12 +451,13 @@ def _add_counts(main_launches, counts) -> None:
         main_launches[kname] = main_launches.get(kname, 0) + n
 
 
-def phase2_dataset(name, graph, dev, main_launches):
+def phase2_dataset(name, graph, dev, main_launches, held):
     """Drive the static experiment on one dataset. The launch counts of
     each main-path replay (counts set to 0 just before it, read just after)
     are added into ``main_launches``; the checks that follow launch kernels
     too, but outside those windows. Returns the DiDiC map, its carried
-    state and the 100 iterations' seconds, where phase 6 starts."""
+    state and the 100 iterations' seconds, where phase 6 starts; keeps the
+    DiDiC map's replay in ``held[name]`` for phase 12."""
     from repro_torch import kernels
     from repro_torch.core import metrics, partitioners
     from repro_torch.core.didic import DidicConfig, didic_partition
@@ -482,6 +497,8 @@ def phase2_dataset(name, graph, dev, main_launches):
         launched = counts["frontier_gather"]
         rep = svc.report()
         tg[pname] = res.percent_global
+        if pname == "didic":
+            held[name] = {"parts": p.copy(), "result": res}
         say(json.dumps({
             "phase": 2, "dataset": name, "partitioning": pname,
             "edge_cut_fraction": rep["edge_cut_fraction"], "modularity": rep["modularity"],
@@ -629,13 +646,15 @@ def _pg(res) -> float:
     return 100.0 * res.percent_global
 
 
-def phase6_dataset(name, graph, start, dev, main_launches):
+def phase6_dataset(name, graph, start, dev, main_launches, held):
     """The paper's dynamic experiments (Chapter 7) on one dataset at the
     paper's scale, from phase 2's DiDiC map and carried state, with the
     parameters of the JAX package's ``benchmarks/paper_tables.py``: Insert
     (§7.4), Stress (§7.5), Dynamic (§7.6) with its unmaintained comparator,
     Insert with vertex growth, and the maintenance cost. Every replay and
-    maintenance run here is a main-path run (its launches counted)."""
+    maintenance run here is a main-path run (its launches counted). The
+    DiDiC map's replay of this phase's log is kept in ``held[name]`` for
+    phase 12."""
     from repro_torch.configs.paper_didic import PaperExperimentConfig
     from repro_torch.core import metrics
     from repro_torch.core.didic import didic_refine
@@ -665,6 +684,7 @@ def phase6_dataset(name, graph, start, dev, main_launches):
     svc = _service(graph, config, dev, parts0, state0)
     base, counts = _counted(lambda: svc.run_ops(ops), main_launches)
     fg += counts["frontier_gather"]
+    held[name]["phase6_result"] = base
     out["didic_T_G_percent"] = _pg(base)
     out["insert"] = {}
     maps = {}
@@ -2218,6 +2238,227 @@ def phase11_launchers(dev, smi):
     say(json.dumps({"phase": 11, "card": smi, "launchers": out}))
 
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+PHASE12_BUDGET_S = 60.0
+# Phase 12's GIS log: the first 1,000 of phase 6's 2,000 ops. Cut because the
+# script passed 1,050 s with the 2,000 (PERF.md §4); never cut graph scale.
+PHASE12_GIS_OPS = 1_000
+PHASE12_SLICE = 0.0005  # the structural slice: a partial redo inside the budget
+
+
+def _open_nccl_world1():
+    """A one-rank NCCL group over a ``HashStore`` on ``cuda:0``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+
+
+def _damaged(parts, k, seed):
+    rng = np.random.default_rng(seed)
+    out = parts.copy()
+    idx = rng.choice(parts.shape[0], size=parts.shape[0] // 4, replace=False)
+    out[idx] = rng.integers(0, k, size=idx.shape[0])
+    return out
+
+
+def phase12(held, dev, smi, main_launches):
+    """The partitioned service on a process group (NCCL, world size 1) at
+    ``scale=1.0`` from phase 2's DiDiC maps: (a) cold sharded replays of
+    filesystem's and Twitter's 10,000-op logs, bit-equal to the batched
+    replays phase 2 holds, and of the first ``PHASE12_GIS_OPS`` ops of
+    GIS's phase-6 log, whose per-op counters equal phase 6's and whose
+    four counters equal a batched replay of the same ops, through
+    ``frontier_gather`` (a main-path run, its launches counted);
+    (b) on GIS the resident fold against the random map, bit-equal to a
+    batched replay, then one structural slice through a mesh service: a
+    partial redo, bit-equal to a cold batched replay of the grown graph;
+    (c) degraded mode: shard 0 failed, the replay bit-equal and counted;
+    (d) the halo-exchange DiDiC on Twitter, 20 iterations, against random
+    and the single-device DiDiC, and a damaged map refined; (e) a
+    device-scan ``least_traffic`` log at 5 % on filesystem equal to the
+    host log; (f) two mesh-runtime slices on Twitter bit-equal to the
+    meshless runtime."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core import metrics, partitioners
+    from repro_torch.core.didic import DidicConfig, didic_partition
+    from repro_torch.core.didic_distributed import (
+        didic_partition_distributed,
+        didic_refine_distributed,
+    )
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.dynamism import generate_dynamism
+    from repro_torch.core.framework import InsertPartitioner, PartitionedGraphService
+    from repro_torch.core.traffic import OpLog, execute_ops, generate_ops
+    from repro_torch.core.traffic_sharded import get_replayer, replay_sharded
+    from repro_torch.launch.mesh import make_replay_mesh
+
+    t_phase = time.perf_counter()
+    _open_nccl_world1()
+    try:
+        mesh = make_replay_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.size == 1,
+              f"phase 12: an NCCL group of {mesh.size} rank on {mesh.device}")
+        out = {"phase": 12, "card": smi, "world_size": mesh.size, "backend": dist.get_backend()}
+        logs = {}
+
+        # (a) cold sharded replays against the held batched results.
+        for name in ("filesystem", "twitter", "gis"):
+            g, parts = held[name]["graph"], held[name]["parts"]
+            if name == "gis":
+                whole = generate_ops(g, n_ops=N_OPS_GIS_DYNAMIC, seed=0)
+                ops = OpLog(whole.pattern, whole.starts[:PHASE12_GIS_OPS].copy(),
+                            whole.ends[:PHASE12_GIS_OPS].copy(), whole.t_l, whole.t_pg)
+            else:
+                ops = generate_ops(g, n_ops=N_OPS, seed=0)
+            logs[name] = ops
+            n_ops = ops.n_ops
+            t0 = time.perf_counter()
+            res, counts = _counted(lambda: replay_sharded(g, ops, mesh, parts, 4), main_launches)
+            cold_s = time.perf_counter() - t0
+            if name == "gis":
+                six = held[name]["phase6_result"]
+                check(np.array_equal(res.per_op_total, six.per_op_total[:n_ops])
+                      and np.array_equal(res.per_op_global, six.per_op_global[:n_ops]),
+                      f"phase 12: gis sharded replay of phase 6's first {n_ops} ops: per-op counters "
+                      f"== phase 6's batched replay")
+                want = execute_ops(g, ops, parts, 4, engine="batched", device=mesh.device)
+                what = "a batched replay of the same log"
+            else:
+                want, what = held[name]["result"], "the batched replay of phase 2"
+            check(_exact(res, want), f"phase 12: {name} sharded replay ({n_ops} ops) == {what}, "
+                                     f"all four counters")
+            out[name] = {"n_ops": n_ops, "cold_s": cold_s, "ops_per_s": n_ops / cold_s,
+                         "frontier_gather_launches": counts["frontier_gather"]}
+            if name == "gis":
+                check(counts["frontier_gather"] > 0, f"phase 12: the sharded GIS replay went through "
+                                                     f"frontier_gather ({counts['frontier_gather']} launches)")
+
+        # (b) GIS: the resident fold against a new map, then a structural slice.
+        g, ops = held["gis"]["graph"], logs["gis"]
+        rand = partitioners.random_partition(g.n_nodes, 4, seed=0)
+        t0 = time.perf_counter()
+        res, counts = _counted(lambda: replay_sharded(g, ops, mesh, rand, 4), main_launches)
+        fold_s = time.perf_counter() - t0
+        state = ops.__dict__["_resident_replay"][get_replayer(g, ops.pattern, mesh)]
+        resident_bytes = state.state_bytes()
+        check(_exact(res, execute_ops(g, ops, rand, 4, engine="batched", device=mesh.device)),
+              f"phase 12: gis resident fold against the random map == a batched replay "
+              f"({fold_s:.3f} s against {out['gis']['cold_s']:.3f} s cold)")
+        svc = PartitionedGraphService(g, 4, mesh=mesh, maintenance="shared")
+        svc.partition_with(held["gis"]["parts"])
+        svc.run_ops(ops)  # the resident state of (a)
+        log = InsertPartitioner("random", 4, seed=0).allocate(svc.parts, PHASE12_SLICE, insert_rate=0.3,
+                                                             graph=svc.graph)
+        svc.apply_dynamism(log)
+        t0 = time.perf_counter()
+        res, counts = _counted(lambda: svc.run_ops(ops), main_launches)
+        redo_s = time.perf_counter() - t0
+        redo = get_replayer(svc.graph, ops.pattern, mesh).last_redo_ops
+        check(0 < redo < ops.n_ops, f"phase 12: gis structural slice (+{log.n_new_vertices} vertices, "
+                                    f"{log.dirty_vertices().shape[0]} dirty) re-solved {redo} of "
+                                    f"{ops.n_ops} ops")
+        check(_exact(res, execute_ops(svc.graph, ops, svc.parts, 4, engine="batched",
+                                      device=mesh.device)),
+              "phase 12: gis partial redo == a cold batched replay of the grown graph")
+        out["gis"].update({"resident_fold_s": fold_s, "resident_state_bytes": resident_bytes,
+                           "structural_redo_ops": redo, "structural_replay_s": redo_s,
+                           "structural_frontier_gather_launches": counts["frontier_gather"]})
+        say(f"phase 12: gis resident fold {fold_s:.3f} s against cold {out['gis']['cold_s']:.3f} s "
+            f"({resident_bytes} B resident); structural slice: {redo} ops re-solved in {redo_s:.3f} s")
+        del svc, state
+
+        # (c) degraded mode on filesystem.
+        g, ops = held["filesystem"]["graph"], logs["filesystem"]
+        svc = PartitionedGraphService(g, 4, mesh=mesh)
+        svc.partition_with(held["filesystem"]["parts"])
+        svc.mark_shard_failed(0)
+        res = svc.run_ops(ops)
+        health = svc.logger.health_report()
+        check(_exact(res, held["filesystem"]["result"]) and health["degraded_replays"] == 1
+              and health["degraded_ops"] == ops.n_ops,
+              f"phase 12: filesystem with shard 0 failed: bit-equal, degraded_replays "
+              f"{health['degraded_replays']}, degraded_ops {health['degraded_ops']} == {ops.n_ops}")
+        svc.mark_shard_recovered(0)
+        check(_exact(svc.run_ops(ops), held["filesystem"]["result"])
+              and svc.logger.degraded_replays == 1,
+              "phase 12: filesystem recovered: sharded again, bit-equal, no new degraded replay")
+        out["degraded"] = health
+
+        # (d) the halo-exchange DiDiC on Twitter.
+        g = held["twitter"]["graph"]
+        cfg = DidicConfig(k=4, iterations=20, smooth_cap=64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_mesh, _ = didic_partition_distributed(g, cfg, mesh, seed=0)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_one, _ = didic_partition(g, cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        cut = {"mesh": metrics.edge_cut_fraction(g, p_mesh), "single": metrics.edge_cut_fraction(g, p_one),
+               "random": metrics.edge_cut_fraction(g, partitioners.random_partition(g.n_nodes, 4, seed=0))}
+        check(cut["mesh"] < cut["random"] and cut["mesh"] < max(2.5 * cut["single"], 0.1),
+              f"phase 12: twitter halo DiDiC cut {cut['mesh']:.4f} < random {cut['random']:.4f} and "
+              f"< max(2.5 x single-device {cut['single']:.4f}, 0.1)")
+        check(min(np.bincount(p_mesh, minlength=4)) > 0, "phase 12: every halo DiDiC part non-empty")
+        dmg = _damaged(p_mesh, 4, 0)
+        fixed, _ = didic_refine_distributed(g, dmg, cfg, mesh, iterations=1)
+        cut["damaged"] = metrics.edge_cut_fraction(g, dmg)
+        cut["refined"] = metrics.edge_cut_fraction(g, fixed)
+        check(cut["refined"] < cut["damaged"], f"phase 12: one halo refine iteration: cut "
+                                               f"{cut['damaged']:.4f} -> {cut['refined']:.4f}")
+        out["didic"] = {"cuts": cut, "mesh_s_per_iteration": mesh_s / cfg.iterations,
+                        "single_s_per_iteration": one_s / cfg.iterations}
+        say(f"phase 12: twitter DiDiC 20 iterations: halo exchange {mesh_s:.2f} s, single device "
+            f"{one_s:.2f} s")
+
+        # (e) the device scan against the host loop.
+        g, parts = held["filesystem"]["graph"], held["filesystem"]["parts"]
+        vt = held["filesystem"]["result"].per_vertex
+        kw = dict(k=4, vertex_traffic=vt, seed=0)
+        t0 = time.perf_counter()
+        host = generate_dynamism(parts, 0.05, "least_traffic", **kw)
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scan = generate_dynamism(parts, 0.05, "least_traffic", engine="device", device=dev, **kw)
+        scan_s = time.perf_counter() - t0
+        check(np.array_equal(host.vertices, scan.vertices) and np.array_equal(host.targets, scan.targets),
+              f"phase 12: filesystem least_traffic at 5 % ({scan.units} units): device scan == host log")
+        out["scan"] = {"units": scan.units, "host_s": host_s, "device_s": scan_s}
+
+        # (f) two mesh-runtime slices on Twitter against the meshless runtime.
+        g, ops = held["twitter"]["graph"], logs["twitter"]
+        rt_config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic("twitter", 4)
+        got = {"host": [], "mesh": []}
+        runs = {}
+        for key, m in (("host", None), ("mesh", mesh)):
+            svc = PartitionedGraphService(g, 4, rt_config, device=dev, mesh=m, maintenance="shared")
+            svc.partition_with(held["twitter"]["parts"])
+            rt = DynamicExperimentRuntime(svc, "least_traffic", seed=0)
+            t0 = time.perf_counter()
+            runs[key] = rt.run(ops, n_slices=2, amount=0.05, maintain_every=1,
+                               on_slice=lambda i, r, key=key: got[key].append(r))
+            torch.cuda.synchronize()
+            out.setdefault("runtime_s", {})[key] = time.perf_counter() - t0
+        check(_exact(runs["host"].baseline, runs["mesh"].baseline)
+              and all(_exact(a, b) for a, b in zip(got["host"], got["mesh"])) and len(got["mesh"]) == 2
+              and runs["host"].records == runs["mesh"].records,
+              "phase 12: twitter mesh runtime (sharded replay, device scan, shared DiDiC), 2 slices "
+              "== the meshless runtime on every counter")
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    say(f"phase 12: {out['phase_s']:.1f} s (budget {PHASE12_BUDGET_S:.0f} s"
+        + (", over" if out["phase_s"] > PHASE12_BUDGET_S else "") + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -2247,13 +2488,14 @@ def main() -> int:
 
     main_launches = {}
     starts = {}
+    held = {}
     for name, graph in graphs.items():
-        starts[name] = phase2_dataset(name, graph, dev, main_launches)
+        starts[name] = phase2_dataset(name, graph, dev, main_launches, held)
         say(f"phase 2 {name} done at {time.perf_counter() - t_start:.1f} s")
     gis_small, kernel_parts = phase3(dev, main_launches)
     say(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     for name, graph in graphs.items():
-        phase6_dataset(name, graph, starts[name], dev, main_launches)
+        phase6_dataset(name, graph, starts[name], dev, main_launches, held)
         say(f"phase 6 {name} done at {time.perf_counter() - t_start:.1f} s")
     phase6_bell(gis_small, kernel_parts, dev, main_launches)
     say(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
@@ -2269,6 +2511,8 @@ def main() -> int:
     say(f"phase 8 online done at {time.perf_counter() - t_start:.1f} s")
     phase8_replicas(graphs["filesystem"], starts["filesystem"], dev, main_launches)
     say(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    for name, graph in graphs.items():
+        held[name]["graph"] = _bare(graph)  # host arrays only; phase 12 builds its own engines
     del graphs, starts, gis_small
     torch.cuda.empty_cache()
     phase4_din(dev, records, main_launches)
@@ -2290,10 +2534,13 @@ def main() -> int:
     say(f"phase 11a done at {time.perf_counter() - t_start:.1f} s")
     phase11_launchers(dev, smi)
     say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t11:.1f} s)")
+    phase12(held, dev, smi, main_launches)
+    say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
-        "of phase 8, the four forwards of phase 9, the training steps of phase 10): " + json.dumps(main_launches, sort_keys=True))
+        "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
+        "replays of phase 12): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -6,9 +6,10 @@ the traffic replay, metrics, the service facade), ``kernels`` (the
 hand-written CUDA kernels that replace the JAX package's Pallas kernels),
 the serving paths of DIN and the LM (dense and MoE), and the training of
 those and of the GNNs and MACE: ``data``, ``models``, ``configs``,
-``serving``, ``train``, ``optim``, ``launch`` and ``distributed`` (MoE
-expert placement). It imports PyTorch and numpy, never JAX and never
-``repro``.
+``serving``, ``train``, ``optim``, ``launch`` (with the meshes over a
+``torch.distributed`` process group) and ``distributed`` (the sharded
+replay's counters, placement, the halo exchange, MoE expert placement). It
+imports PyTorch and numpy, never JAX and never ``repro``.
 
 Every entry point takes ``device=None``, which means CUDA;
 :func:`resolve_device` raises when CUDA is asked for and absent, so a run

@@ -170,15 +170,21 @@ def make_spmm(
     return cache[key]
 
 
-def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig):
-    """One DiDiC iteration; the commit mask is an argument."""
+def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig,
+               allreduce: Optional[Callable] = None, n_rows: Optional[int] = None):
+    """One DiDiC iteration; the commit mask is an argument.
+
+    On a mesh (:mod:`repro_torch.core.didic_distributed`) each rank steps
+    its own block of rows: ``allreduce`` sums a tensor over the ranks, for
+    the rescale's mean and the balance fit's sizes, and ``n_rows`` is the
+    row count of all the blocks."""
     k = config.k
     safe_deg = torch.clamp(degc, min=1e-6)[:, None]
     degc = degc[:, None]
     classes = torch.arange(k, dtype=torch.int32, device=degc.device)
 
     def step(w, l, parts, beta, commit, smooth_steps: int):
-        n = w.shape[0]
+        n = w.shape[0] if n_rows is None else n_rows
         onehot = (parts[:, None] == classes[None, :]).to(w.dtype)
         # Fresh per-member secondary seed with an ε-floor (JAX fix #1).
         l = _INIT_LOAD * onehot + 0.01
@@ -188,7 +194,8 @@ def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig):
                 lb = l / benefit
                 l = l - degc * lb + spmm(lb)
             w = w + l - degc * w + spmm(w)
-        w = w / torch.clamp(w.mean(), min=1e-6)  # column-common rescale
+        mean = w.mean() if allreduce is None else allreduce(w.sum()) / (n * k)
+        w = w / torch.clamp(mean, min=1e-6)  # column-common rescale
         # Annealed lazy-random-walk assignment smoothing (fixes #3, #4).
         smoothed = w
         for _ in range(smooth_steps):
@@ -197,7 +204,8 @@ def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig):
         tgt = n / k
         for _ in range(config.balance_iters):
             p = torch.argmax(smoothed * beta[None, :], dim=1)
-            sizes = torch.bincount(p, minlength=k).to(w.dtype)
+            sizes = torch.bincount(p, minlength=k)
+            sizes = (sizes if allreduce is None else allreduce(sizes)).to(w.dtype)
             beta = torch.clamp(
                 beta * (tgt / torch.clamp(sizes, min=1.0)) ** config.balance_exp, 1e-3, 1e3
             )

@@ -19,10 +19,10 @@ simulator. Structural logs carry per-unit attribution of their inserts, so
 :meth:`DynamismLog.slice` cuts them into the Dynamic experiment's 5 %
 slices without dropping or repeating an insert.
 
-The JAX package can also run the sequential policies as one device scan
-(``engine="device"``), which it takes only on a mesh; here that scan
-raises until the multi-device slice of the port brings it (``random``
-needs no scan and draws on the host under either engine, as there).
+``engine="device"`` runs the sequential policies as a scan on a device
+(:func:`repro_torch.core.dynamic_runtime.scan_dynamism_targets`) with
+bit-identical targets; the service takes it on a mesh. ``random`` needs no
+scan and draws on the host under either engine, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -252,6 +252,7 @@ def generate_dynamism(
     engine: str = "host",
     insert_rate: float = 0.0,
     graph=None,
+    device=None,
 ) -> DynamismLog:
     """Create ``amount·|V|`` sequential move/insert operations.
 
@@ -266,18 +267,14 @@ def generate_dynamism(
     vertices' attributes and edges. With ``insert_rate=0`` the draws, and so
     the log, are those of a pure-move generator. ``seed`` may be a
     :class:`np.random.SeedSequence` (the insert partitioner's spawned
-    streams). ``engine="device"`` with a sequential method is the
-    multi-device slice's and raises.
+    streams). ``engine="device"`` draws the sequential methods' targets
+    with the device scan on ``device`` (``None`` means CUDA), bit-identical
+    to the host loops below, which stay the reference.
     """
     if method not in INSERT_METHODS:
         raise ValueError(f"unknown insert method {method!r}")
     if engine not in ("host", "device"):
         raise ValueError(f"unknown dynamism engine {engine!r}")
-    if engine == "device" and method != "random":
-        raise NotImplementedError(
-            "engine='device' (the JAX package's mesh scan of the insert policies) "
-            "comes with the port's multi-device slice; use engine='host'"
-        )
     if not 0.0 <= insert_rate <= 1.0:
         raise ValueError(f"insert_rate must be in [0, 1], got {insert_rate}")
     k = int(parts.max()) + 1 if k is None else k
@@ -324,6 +321,13 @@ def generate_dynamism(
             np.zeros(n - np.asarray(vertex_traffic).shape[0],
                      dtype=np.asarray(vertex_traffic).dtype),
         ])
+
+    if engine == "device" and method != "random":
+        from repro_torch.core.dynamic_runtime import scan_dynamism_targets
+
+        targets = scan_dynamism_targets(parts, movers, method, k, vertex_traffic=vertex_traffic,
+                                        insert_mask=is_insert, device=device)
+        return DynamismLog(vertices=vertices, targets=targets, method=method, k=k, **growth)
 
     cur = parts.astype(np.int64).copy()
     counts = np.bincount(cur, minlength=k).astype(np.int64)

@@ -15,10 +15,10 @@ replayed cannot be regression-tested. So every fault here is keyed by
   snapshot and journal), **maintenance timeouts** (the first *n* attempts
   of a slice's DiDiC maintenance raise :class:`MaintenanceTimeout`; the
   service retries under a :class:`RetryPolicy`) and **shard failures**
-  (a mesh shard down for a range of slices). The port's service has no
-  mesh, so a plan's shard failures change nothing it computes, exactly as
-  on the JAX package's service built with ``mesh=None``; degraded mode
-  comes with the multi-device slice (ROADMAP A10).
+  (a mesh shard down for a range of slices: a service built with a mesh
+  serves its sharded replays degraded, through the batched engine, bit-equal
+  and counted; a meshless service computes nothing differently, as in the
+  JAX package).
 * :class:`RetryPolicy` — bounded exponential backoff under a deadline;
   exceeding either raises :class:`RecoveryDeadlineExceeded`.
 
@@ -111,8 +111,8 @@ DROPPED_SITES: Dict[str, str] = {
     "apply:compact": (
         "fires before the delta-overlay GraphStore's compaction rebuild; the "
         "port has no store (a grown graph is a new object with fresh "
-        "engines), so nothing compacts — waits for the multi-device slice "
-        "(ROADMAP A10)"
+        "engines), so nothing compacts — waits for the capacity store "
+        "(ROADMAP A10, the store item)"
     ),
 }
 

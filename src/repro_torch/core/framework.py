@@ -32,10 +32,21 @@ timeouts at named sites, ``retry_policy`` bounds the maintenance retries,
 and a :class:`~repro_torch.core.recovery.DynamismJournal` makes
 :meth:`PartitionedGraphService.apply_dynamism` a write-ahead, exactly-once
 operation per log fingerprint. With none attached the service computes
-exactly what it did without them. The mesh engines, and with them degraded
-mode (a failed shard served by the shared engine), wait for the
-multi-device slice (ROADMAP A10); so does the ``apply:compact`` site, which
-needs the delta-overlay store.
+exactly what it did without them. The ``apply:compact`` site waits for
+the delta-overlay store.
+
+**Engine dispatch.** Built with a ``mesh`` (a
+:class:`~repro_torch.launch.mesh.ReplayMesh` over a ``torch.distributed``
+group, every rank running the same program), ``run_ops`` replays through
+:func:`~repro_torch.core.traffic_sharded.replay_sharded` with the log's
+resident state, ``maintain`` runs the halo-exchange DiDiC of
+:mod:`repro_torch.core.didic_distributed` (unless ``maintenance="shared"``
+keeps the single-device DiDiC, bit for bit the meshless service's), and
+the insert partitioner draws the sequential policies with the device scan.
+A shard marked failed (:meth:`PartitionedGraphService.mark_shard_failed`,
+or the fault plan's schedule) degrades the sharded replay to the batched
+engine over the whole log, bit-equal and counted in the logger's
+``degraded_replays`` and ``degraded_ops``.
 """
 
 from __future__ import annotations
@@ -50,11 +61,17 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.core import metrics
 from repro_torch.core.didic import DidicConfig, DidicState, didic_partition, didic_refine
+from repro_torch.core.didic_distributed import (
+    didic_partition_distributed,
+    didic_refine_distributed,
+)
 from repro_torch.core.dynamism import DynamismLog, apply_dynamism, generate_dynamism
 from repro_torch.core.fault import MaintenanceTimeout, RetryPolicy, SimulatedCrash
 from repro_torch.core.partitioners import select_hot_vertices
 from repro_torch.core.placement import Placement
 from repro_torch.core.traffic import OpLog, TrafficResult, execute_ops, generate_ops
+from repro_torch.core.traffic_sharded import migrate_resident_states, replay_sharded
+from repro_torch.distributed.counters import data_shard_count
 from repro_torch.graphs.structure import Graph
 
 __all__ = [
@@ -84,16 +101,16 @@ class InsertPartitioner:
     Each ``allocate`` draws from a fresh child spawned off one
     :class:`np.random.SeedSequence`, as in the JAX package: the i-th call of
     two partitioners built with the same seed is identical, and streams of
-    different seeds never collide. ``engine="device"`` asks for the JAX
-    package's mesh scan, which :func:`generate_dynamism` refuses for the
-    sequential methods until the multi-device slice.
+    different seeds never collide. ``engine="device"`` draws the sequential
+    methods with the device scan on ``device`` (bit-identical targets).
     """
 
     def __init__(self, method: str = "random", k: int = 4, seed: int = 0,
-                 engine: str = "host"):
+                 engine: str = "host", device=None):
         self.method = method
         self.k = k
         self.engine = engine
+        self.device = device
         self._seeds = np.random.SeedSequence(seed)
 
     def allocate(
@@ -111,7 +128,7 @@ class InsertPartitioner:
         return generate_dynamism(
             parts, amount, self.method, self.k,
             vertex_traffic=vertex_traffic, seed=stream, engine=self.engine,
-            insert_rate=insert_rate, graph=graph,
+            insert_rate=insert_rate, graph=graph, device=self.device,
         )
 
     def rng_state(self) -> Tuple:
@@ -152,9 +169,8 @@ class RuntimeLogger:
         self.infos: List[InstanceInfo] = [InstanceInfo() for _ in range(self.k)]
         self._last_percent_global = 0.0
         # Health counters, under the JAX package's names (a snapshot
-        # restores them by name). The port has no mesh, so nothing is served
-        # degraded, and no device-resident replay state, so
-        # ``resident_state_bytes`` stays 0.
+        # restores them by name). ``resident_state_bytes`` is this rank's
+        # resident replay state, refreshed after each sharded replay.
         self.degraded_replays = 0
         self.degraded_ops = 0
         self.maintenance_retries = 0
@@ -308,14 +324,29 @@ class RuntimeLogger:
 class RuntimePartitioner:
     """Runtime-Partitioning component: DiDiC's initial partitioning and its
     maintenance passes on ``device``, with the diffusion state carried from
-    one pass to the next."""
+    one pass to the next.
 
-    def __init__(self, config: DidicConfig, device=None):
+    With a ``mesh`` both passes run the halo-exchange DiDiC of
+    :mod:`repro_torch.core.didic_distributed` (each rank one block of
+    vertices, the carried state sharded). It is the same algorithm summed
+    in another float32 order, so it matches the single-device DiDiC in
+    quality, not bit for bit.
+    """
+
+    def __init__(self, config: DidicConfig, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",), device=None):
         self.config = config
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
         self.device = device
         self.state: Optional[DidicState] = None
 
     def initial(self, graph: Graph, seed: int = 0) -> np.ndarray:
+        if self.mesh is not None:
+            parts, _ = didic_partition_distributed(graph, self.config, self.mesh,
+                                                   self.data_axes, seed=seed)
+            self.state = None  # sharded maintenance seeds from the map
+            return parts
         parts, self.state = didic_partition(graph, self.config, seed=seed, device=self.device)
         return parts
 
@@ -323,6 +354,12 @@ class RuntimePartitioner:
                  pinned: Optional[np.ndarray] = None) -> np.ndarray:
         """One maintenance refinement; ``pinned`` vertices (the placement's
         exception table) keep their assignment."""
+        if self.mesh is not None:
+            parts, self.state = didic_refine_distributed(
+                graph, parts, self.config, self.mesh, self.data_axes,
+                state=self.state, iterations=iterations, pinned=pinned,
+            )
+            return parts
         parts, self.state = didic_refine(
             graph, parts, self.config, state=self.state, iterations=iterations,
             pinned=pinned, device=self.device,
@@ -393,8 +430,14 @@ class MigrationScheduler:
 
 class PartitionedGraphService:
     """Emulator-style partitioned graph database (paper §5.3.2): drives the
-    Static, Insert, Stress and Dynamic experiments on one device. Replays
-    and DiDiC run on ``device`` (``None`` means CUDA).
+    Static, Insert, Stress and Dynamic experiments. Replays and DiDiC run
+    on ``device`` (``None`` means CUDA), or with a ``mesh`` on its ranks
+    (the mesh's device), every rank running the same program.
+
+    ``maintenance`` refines the mesh's choice for DiDiC: ``"auto"`` the
+    mesh DiDiC when there is a mesh, ``"sharded"`` the mesh DiDiC (a mesh
+    is required), ``"shared"`` the single-device DiDiC even on a mesh, so
+    a mesh run stays bit-identical to the meshless service.
 
     ``fault_plan``, ``journal`` and ``retry_policy`` (all ``None`` by
     default) attach the fault layer; see the module docstring."""
@@ -406,30 +449,53 @@ class PartitionedGraphService:
         didic: Optional[DidicConfig] = None,
         *,
         device=None,
+        mesh=None,
+        data_axes: Tuple[str, ...] = ("data",),
+        maintenance: str = "auto",
         exception_capacity: int = 0,
     ):
-        self.device = resolve_device(device)
+        if maintenance not in ("auto", "sharded", "shared"):
+            raise ValueError(f"unknown maintenance mode {maintenance!r}")
+        if maintenance == "sharded" and mesh is None:
+            raise ValueError("maintenance='sharded' requires a mesh")
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.graph = graph
         self.k = k
         self.placement = Placement(
             owner=np.zeros(graph.n_nodes, dtype=np.int32),
             capacity=int(exception_capacity),
         )
+        # Evaluation logs served on the mesh, by content fingerprint, LRU:
+        # structural dynamism migrates their resident replay states onto the
+        # new graph, an equal regenerated log lands on the first one's
+        # state, and logs past ``max_resident_logs`` drop theirs.
+        self._replayed_logs: "OrderedDict[str, OpLog]" = OrderedDict()
+        self.max_resident_logs = 8
         self.fault_plan = None
         self.journal = None
         self.retry_policy = None
+        # Shards marked failed; with the fault plan's they degrade the
+        # sharded replay to the batched engine.
+        self.failed_shards: set = set()
         # Fingerprints of journal-managed logs already applied, LRU-bounded:
         # the idempotency window of journal replay after recovery.
         self._applied_dynamism: "OrderedDict[str, None]" = OrderedDict()
         self.max_applied_fingerprints = 256
         self.logger = RuntimeLogger(k)
-        self.runtime = RuntimePartitioner(didic or DidicConfig(k=k), device=self.device)
+        self.runtime = RuntimePartitioner(
+            didic or DidicConfig(k=k),
+            mesh=mesh if maintenance in ("auto", "sharded") else None,
+            data_axes=self.data_axes, device=self.device,
+        )
         self.scheduler = MigrationScheduler()
 
     @property
     def engine(self) -> str:
-        """Which engine family serves this service: ``host`` (no mesh)."""
-        return "host"
+        """Which engine family serves this service: ``host`` or, with a
+        mesh, ``device``."""
+        return "device" if self.mesh is not None else "host"
 
     @property
     def parts(self) -> np.ndarray:
@@ -539,25 +605,92 @@ class PartitionedGraphService:
         new_parts = self.propose_maintenance(iterations=iterations)
         return self.commit_migration(scheduler, new_parts, step, prev_state=prev_state)
 
-    def run_ops(self, ops: OpLog, engine: str = "batched") -> TrafficResult:
-        """Replay an evaluation log: ``batched`` (the device engine) or
-        ``scalar`` (the host oracle); both give identical counters. Steps
+    def run_ops(self, ops: OpLog, engine: str = "auto", resident: bool = True) -> TrafficResult:
+        """Replay an evaluation log. ``engine``: ``auto`` (sharded with a
+        mesh, else batched), ``sharded``, ``batched`` (the device engine) or
+        ``scalar`` (the host oracle); all give identical counters. Steps
         into the placement's replicated vertices are local reads. An
-        attached fault plan fires ``replay`` first."""
+        attached fault plan fires ``replay`` first.
+
+        ``resident`` (sharded only) keeps the log's parts-independent solve
+        artifacts across replays
+        (:class:`~repro_torch.core.traffic_sharded.ResidentReplayState`);
+        ``False`` forces a cold solve. Equal logs share one state
+        (:meth:`_register_log`).
+
+        **Degraded mode.** While a shard is failed (:meth:`mark_shard_failed`
+        or the fault plan's schedule) a sharded replay runs the batched
+        engine over the whole log instead, bit-equal on all four counters;
+        the logger counts the replay in ``degraded_replays`` and the ops
+        whose home shard is down in ``degraded_ops``.
+        """
         if self.fault_plan is not None:
             self.fault_plan.fire("replay")
-        result = execute_ops(self.graph, ops, self.parts, self.k, engine=engine,
-                             device=self.device,
-                             replicated=self.placement.replicated_mask())
+        if engine == "sharded" and self.mesh is None:
+            raise ValueError("engine='sharded' requires a service mesh")
+        replicated = self.placement.replicated_mask()
+        if engine == "sharded" or (engine == "auto" and self.mesh is not None):
+            failed = self._currently_failed_shards()
+            if failed:
+                result = execute_ops(self.graph, ops, self.parts, self.k, engine="batched",
+                                     device=self.device, replicated=replicated)
+                self.logger.record_degraded(self._degraded_op_count(ops, failed))
+            else:
+                ops = self._register_log(ops)
+                result = replay_sharded(self.graph, ops, self.mesh, self.parts, self.k,
+                                        data_axes=self.data_axes, resident=resident,
+                                        replicated=replicated)
+                self.logger.resident_state_bytes = self._resident_state_bytes()
+        else:
+            result = execute_ops(self.graph, ops, self.parts, self.k,
+                                 engine="batched" if engine == "auto" else engine,
+                                 device=self.device, replicated=replicated)
         self.logger.observe_traffic(result)
         return result
 
+    def _resident_state_bytes(self) -> int:
+        """This rank's resident replay state over the registered logs."""
+        return sum(state.state_bytes()
+                   for ops in self._replayed_logs.values()
+                   for state in ops.__dict__.get("_resident_replay", {}).values())
+
+    # -- shard health --------------------------------------------------------
     def mark_shard_failed(self, shard: int) -> None:
-        """Degraded mode needs mesh shards, which the port's one-device
-        service does not have."""
-        raise NotImplementedError(
-            f"mark_shard_failed({shard}): degraded mode needs a mesh, which comes with "
-            "the multi-device slice (ROADMAP, queue A item 10)")
+        """Mark a mesh shard down: sharded replays degrade to the batched
+        engine until :meth:`mark_shard_recovered`. A meshless service
+        records it and replays as before."""
+        self.failed_shards.add(int(shard))
+
+    def mark_shard_recovered(self, shard: int) -> None:
+        self.failed_shards.discard(int(shard))
+
+    def _currently_failed_shards(self) -> set:
+        failed = set(self.failed_shards)
+        if self.fault_plan is not None:
+            failed |= set(self.fault_plan.failed_shards())
+        return failed
+
+    def _degraded_op_count(self, ops: OpLog, failed: set) -> int:
+        """Ops whose home shard (the contiguous split of the log) is down."""
+        shards = data_shard_count(self.mesh, self.data_axes)
+        b = -(-max(ops.n_ops, 1) // shards)
+        return sum(max(0, min(ops.n_ops, (s + 1) * b) - min(ops.n_ops, s * b))
+                   for s in failed if 0 <= s < shards)
+
+    def _register_log(self, ops: OpLog) -> OpLog:
+        """The working set of logs with resident state: an equal log
+        resolves to the first one seen (and its state); past
+        ``max_resident_logs`` the least recent log drops its state."""
+        fp = ops.fingerprint()
+        cached = self._replayed_logs.get(fp)
+        if cached is not None:
+            self._replayed_logs.move_to_end(fp)
+            return cached
+        self._replayed_logs[fp] = ops
+        while len(self._replayed_logs) > self.max_resident_logs:
+            _, evicted = self._replayed_logs.popitem(last=False)
+            evicted.__dict__.pop("_resident_replay", None)
+        return ops
 
     def make_ops(self, n_ops: int = 10_000, seed: int = 0, pattern: Optional[str] = None) -> OpLog:
         return generate_ops(self.graph, n_ops=n_ops, seed=seed, pattern=pattern)
@@ -643,6 +776,7 @@ class PartitionedGraphService:
         if plan is not None:
             plan.fire("apply:pre_commit")
         # -- commit (nothing below may raise) --------------------------------
+        old_graph = self.graph
         self.parts = new_parts
         self.graph = new_graph
         self.placement.invalidate(
@@ -650,6 +784,10 @@ class PartitionedGraphService:
         )
         if log.n_new_vertices:
             self.runtime.state = None
+        if self.mesh is not None:
+            dirty = log.dirty_vertices()
+            for ops in self._replayed_logs.values():
+                migrate_resident_states(ops, old_graph, self.graph, dirty)
         self.logger.observe_structure(self.graph, self.parts)
 
     def _check_insert_admissible(self, log: DynamismLog) -> None:

@@ -147,10 +147,15 @@ def _sssp_solve(
     delta: float,  # bucket width (ignored unless finite_delta)
     max_expansions: int,
     finite_delta: bool,
+    footprint: bool = False,
 ):
     """Twin of the JAX package's ``_sssp_solve_body``, op for op.
 
-    Returns ``(member [W, C] bool, edges [C], cross [C], f_dst [C], done [C])``.
+    Returns ``(member [W, C] bool, edges [C], cross [C], f_dst [C], done [C])``;
+    with ``footprint``, ``foot [W, C] bool`` follows ``member``: every row
+    with ``f <= f_dst`` (boundary included, cap not applied), the set an
+    inserted edge must touch to change the op's result (the resident
+    replay's invalidation test, :mod:`repro_torch.core.traffic_sharded`).
     """
     w_nodes, c = h.shape
     dev = h.device
@@ -204,6 +209,7 @@ def _sssp_solve(
         (f == f_dst[None, :]) & (ids_w[:, None] < dst_ids[None, :])
     )
     member = member & torch.isfinite(f) & valid[None, :]
+    foot = (f <= f_dst[None, :]) & torch.isfinite(f) & valid[None, :] if footprint else None
     if w_nodes > max_expansions:
         # Keep the max_expansions lex-smallest members: a stable sort of f
         # ties by row position; rows ascend in global id, i.e. (f, id) order.
@@ -216,6 +222,8 @@ def _sssp_solve(
     m = member.long()
     edges = (m * deg_w[:, None]).sum(dim=0)
     cross = (m * cross_w[:, None]).sum(dim=0)
+    if footprint:
+        return member, foot, edges, cross, f_dst, done
     return member, edges, cross, f_dst, done
 
 
@@ -298,6 +306,7 @@ class BatchedTrafficEngine:
             self._rank_t = torch.as_tensor(_hilbert_rank(self._lon, self._lat), device=dev)
             self._full_layout = None
             self._full_order = None
+            self._full_window = None
             self._device_h_ok = self._check_device_h()
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -523,18 +532,7 @@ class BatchedTrafficEngine:
         dst_safe = np.where(valid, dsts, 0)
         win_t = self._tensor(window)
         order = self.full_row_order() if full else self.row_order(win_t, w_pad)
-        if self._device_h_ok:
-            lon_w = torch.zeros(w_pad, dtype=torch.float32, device=self.device)
-            lat_w = torch.zeros(w_pad, dtype=torch.float32, device=self.device)
-            lon_w[:w_real] = self._lon_t[win_t]
-            lat_w[:w_real] = self._lat_t[win_t]
-            dst_t = self._tensor(dst_safe)
-            h = _device_h(lon_w, lat_w, self._lon_t[dst_t], self._lat_t[dst_t])
-        else:
-            h_host = np.zeros((w_pad, srcs.shape[0]), dtype=np.float32)
-            h_host[:w_real] = self._host_h(window, dst_safe)
-            h = self._tensor(h_host)
-
+        h = self._heuristic(window, win_t, w_pad, dst_safe)
         args = (
             self._tensor(loc_src, torch.int64), self._tensor(loc_dst, torch.int64),
             self._tensor(dst_safe.astype(np.int32)), self._tensor(valid),
@@ -542,6 +540,40 @@ class BatchedTrafficEngine:
             nbr, w_inf, tail, order, h,
         )
         return args, window, w_real, box, full
+
+    def _heuristic(self, window: np.ndarray, win_t: torch.Tensor, w_pad: int,
+                   dst_safe: np.ndarray) -> torch.Tensor:
+        """``[w_pad, C]`` heuristic rows of a window to each op's dst (zero
+        rows past the window's real rows)."""
+        w_real = window.shape[0]
+        if self._device_h_ok:
+            lon_w = torch.zeros(w_pad, dtype=torch.float32, device=self.device)
+            lat_w = torch.zeros(w_pad, dtype=torch.float32, device=self.device)
+            lon_w[:w_real] = self._lon_t[win_t]
+            lat_w[:w_real] = self._lat_t[win_t]
+            dst_t = self._tensor(dst_safe)
+            return _device_h(lon_w, lat_w, self._lon_t[dst_t], self._lat_t[dst_t])
+        h_host = np.zeros((w_pad, dst_safe.shape[0]), dtype=np.float32)
+        h_host[:w_real] = self._host_h(window, dst_safe)
+        return self._tensor(h_host)
+
+    def full_per_op(self, srcs: np.ndarray, dsts: np.ndarray, valid: np.ndarray):
+        """Per-op columns ``(loc_src, loc_dst, dst_ids, valid, h)`` of the
+        whole-graph layout: the slim form of ``build_sssp_problem(full=True)``
+        for callers that hold the layout (:meth:`ensure_full_layout`) and
+        their own ``cross_w``, with ``h`` from the same code path, so
+        results are bit-identical."""
+        w_pad = self.ensure_full_layout()[0]
+        loc_src = np.where(valid, srcs, 0)
+        loc_dst = np.where(valid, dsts, 0)
+        if self._full_window is None:
+            window = np.arange(self.n_nodes, dtype=np.int64)
+            self._full_window = (window, self._tensor(window))
+        h = self._heuristic(*self._full_window, w_pad, loc_dst)
+        return (
+            self._tensor(loc_src, torch.int64), self._tensor(loc_dst, torch.int64),
+            self._tensor(loc_dst.astype(np.int32)), self._tensor(valid), h,
+        )
 
     def window_accept(
         self,

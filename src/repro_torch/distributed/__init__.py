@@ -1,3 +1,5 @@
-"""Multi-device placement (twin of ``repro.distributed``). This slice holds
-:mod:`.expert_placement`; the mesh modules (counters, halo, placement,
-sharding) come with the port's multi-device slice (ROADMAP, queue A item 10)."""
+"""Multi-device placement (twin of ``repro.distributed``): the per-vertex
+counter reduction of the sharded replay (:mod:`.counters`), partition-aware
+placement (:mod:`.placement`), the halo exchange (:mod:`.halo`) and MoE
+expert placement (:mod:`.expert_placement`). The model-sharding rules wait
+for the model side of the multi-device work."""

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port's model paths (twin of ``repro.launch``)."""
+"""Command-line entry points of the port (twin of ``repro.launch``): serving,
+training, the sharded replay, and the meshes over a process group."""

@@ -18,9 +18,9 @@ Twin of ``benchmarks/paper_tables.py`` and of the table part of
 Replays and DiDiC run on ``device`` (``None`` means CUDA; GIS replays go
 through ``frontier_gather``). The three static tables and the Insert
 experiment replay the same (dataset, method, k) triples, so each replay is
-computed once and cached in the bench; no row changes. The JAX package's
-``mesh=`` and ``maintenance=`` options belong to the multi-device slice and
-have no twin here.
+computed once and cached in the bench; no row changes. The JAX bench's
+``mesh=`` and ``maintenance=`` options have no twin here; the service takes
+them (:class:`~repro_torch.core.framework.PartitionedGraphService`).
 
     PYTHONPATH=src python -m repro_torch.paper_tables --scale 1.0 --tables 7.1,corr
     PYTHONPATH=src python -m repro_torch.paper_tables --device cpu --scale 0.002 --didic-iters 10

@@ -16,9 +16,11 @@ traffic by ``select_hot_vertices``, the signal the service's
 * **uniform control**: filesystem's global traffic never rises by more
   than 1 % at any capacity.
 
-The JAX smoke also holds the sharded engine, which comes with the
-multi-device slice, and counts XLA compiles during the sweep; eager PyTorch
-compiles nothing, so that gate has no twin here.
+The JAX smoke also holds the sharded engine and counts XLA compiles during
+the sweep. The sharded engine needs a process group, which this one-process
+smoke does not open (``tests/test_torch_sharded.py`` holds it, replicas
+included through ``cross_degree``); eager PyTorch compiles nothing, so that
+gate has no twin here.
 
     PYTHONPATH=src python -m repro_torch.skew_smoke                    # on the card
     PYTHONPATH=src python -m repro_torch.skew_smoke --device cpu --scale 0.01 --n-ops 48

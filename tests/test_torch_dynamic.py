@@ -150,9 +150,14 @@ def test_random_with_device_engine_draws_on_the_host(graphs, name):
 
 
 def test_device_scan_names_the_multi_device_slice():
-    parts = np.zeros(100, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        generate_dynamism(parts, 0.1, "fewest_vertices", k=4, engine="device")
+    """The device scan came with the multi-device slice: on the CPU it
+    draws the host loop's log, and the JAX package's device scan's."""
+    parts = (np.arange(100) % 4).astype(np.int32)
+    for method in ("fewest_vertices", "least_traffic"):
+        kw = dict(k=4, seed=3, vertex_traffic=np.arange(100) if method == "least_traffic" else None)
+        dev = generate_dynamism(parts, 0.4, method, engine="device", device="cpu", **kw)
+        _assert_logs_equal(dev, generate_dynamism(parts, 0.4, method, **kw))
+        _assert_logs_equal(dev, jax_generate(parts, 0.4, method, engine="device", **kw))
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -652,8 +652,14 @@ def test_shard_failures_change_nothing_without_a_mesh():
     assert ref.records == out.records
     health = make().service.logger.health_report()
     assert health["degraded_replays"] == health["degraded_ops"] == 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make().service.mark_shard_failed(0)
+    # As in the JAX package: a meshless service records a failed shard and
+    # replays as before, counting nothing degraded.
+    svc = make().service
+    before = svc.run_ops(ops)
+    svc.mark_shard_failed(0)
+    assert svc.failed_shards == {0}
+    _assert_results_equal(before, svc.run_ops(ops), "meshless replay, shard 0 marked failed")
+    assert svc.logger.health_report()["degraded_replays"] == 0
 
 
 def test_no_plan_no_journal_is_the_plain_service():
