@@ -108,7 +108,20 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     failed); the halo-exchange DiDiC on Twitter against random and the
     single-device run; the device-scan ``least_traffic`` log against the
     host's; two mesh-runtime slices on Twitter against the meshless
-    runtime.
+    runtime;
+13. after phase 12, the model side of multi-device on an NCCL group of one
+    rank, a ``("data", "model")`` mesh of (1, 1): (a) deepseek-moe-16b at
+    full width and depth (random bf16 weights), placed by ``shard_tree``
+    with ``ep_param_specs``, its expert-parallel forward over 4,096 tokens
+    bit-equal to the dense forward (28 ``flash_attention`` launches on
+    ``wgmma``), and each layer's MoE played as 4 model ranks in turn (16
+    experts each), their parts summed against ``moe_fwd``; (b) the online server on GIS at ``scale=1.0`` on a mesh
+    service (``maintenance="shared"``) from phase 2's DiDiC map, a clean and
+    a crash leg (admit and commit crashes, shard 0 failed for 4 ticks) of 48
+    requests, each equal to the offline replay of its epochs and to the
+    other, with no resident state left; (c) the distributed GCN twin on
+    GIS at ``scale=1.0`` folded onto the one shard, 60 steps, its first 5
+    losses against the same run on the CPU (a gloo group of one rank).
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -118,7 +131,8 @@ and phase 10's trainer runs on the card
 (``flash_attention``), every replay
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables, phase 8's uninterrupted, recovered and
-online runs and phase 12's sharded GIS replays (``frontier_gather``);
+online runs, phase 12's sharded GIS replays and phase 13's online runs
+(``frontier_gather``), and phase 13's EP forward (``flash_attention``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``). The
@@ -2459,6 +2473,256 @@ def phase12(held, dev, smi, main_launches):
         + (", over" if out["phase_s"] > PHASE12_BUDGET_S else "") + ")")
 
 
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+PHASE13_BUDGET_S = 60.0
+PHASE13_TOKENS = 4_096          # the EP forward's sequence, as phase 9's
+EP_MODEL_RANKS = 4              # 13a: the model ranks one card plays in turn
+EP_RANKS_ATOL_STEPS = 4         # their summed parts against moe_fwd: bf16 steps of the largest entry
+GCN_STEPS = 60                  # the JAX example's steps
+GCN_CPU_STEPS = 5               # the CPU run the card's first losses are held to
+GCN_CPU_RTOL = 1e-4             # index_add_ sums by atomics on the card
+
+
+def _phase13_lm_config():
+    """deepseek-moe-16b at ``FULL`` width and depth (28 layers, 64 routed
+    experts top-6, 2 shared; bf16)."""
+    from repro_torch.configs.deepseek_moe_16b import FULL
+
+    return FULL
+
+
+class _ModelRankView:
+    """Model rank ``q`` of a ``(1, model)`` mesh, played on this one card:
+    the shape and axis index such a rank sees, so ``shard_tree`` gives it
+    its experts and ``moe_fwd_ep`` its dispatch. The data axis has one
+    rank, so a reduce over it is the identity; the model-axis reduce keeps
+    the rank's part in ``parts`` (the caller sums the ranks' parts, as the
+    ``all_reduce`` would) and passes it on."""
+
+    def __init__(self, q, model):
+        self.q, self.shape, self.parts = q, {"data": 1, "model": model}, []
+
+    def axis_index(self, axes):
+        return self.q if "model" in ((axes,) if isinstance(axes, str) else tuple(axes)) else 0
+
+    def all_reduce(self, t, op=None, axis=None):
+        if axis == "model":
+            self.parts.append(t)
+        return t
+
+
+def _phase13_ep_ranks(cfg, params, dev):
+    """Each layer's MoE as ``EP_MODEL_RANKS`` model ranks compute it, one
+    after another on this card: rank q holds experts ``[16q, 16q + 16)``
+    (placed by ``shard_tree`` with ``ep_param_specs``), routes all 4,096
+    tokens, drops the assignments to other ranks' experts and runs its
+    experts; the ranks' parts summed plus the shared expert against
+    ``moe_fwd`` on the whole layer. Inputs: seeded unit normals, as the
+    RMS-normed hidden state. Returns the largest gap over the layers, the
+    largest entry it is relative to and whether every aux was the dense
+    one bit for bit."""
+    from repro_torch.distributed.sharding import ep_param_specs, shard_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import swiglu
+    from repro_torch.models.moe import moe_fwd, moe_fwd_ep
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst, scale, aux_equal, close = 0.0, 0.0, True, True
+    for i in range(cfg.n_layers):
+        lp = tf.layer_params(params, i)["moe"]
+        x = torch.randn((1, PHASE13_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+        want, want_aux = moe_fwd(lp, x, cfg.moe)
+        parts = []
+        for q in range(EP_MODEL_RANKS):
+            view = _ModelRankView(q, EP_MODEL_RANKS)
+            mine = shard_tree({"moe": lp}, ep_param_specs({"layers": {"moe": lp}})["layers"], view)["moe"]
+            _, aux = moe_fwd_ep(mine, x, cfg.moe, view)
+            aux_equal = aux_equal and torch.equal(aux, want_aux)
+            parts += view.parts
+            del mine
+        y = parts[0]
+        for part in parts[1:]:
+            y = y + part
+        y = (y + swiglu(lp["shared"], x.reshape(-1, cfg.d_model))).reshape(want.shape)
+        gap, top = float((y.float() - want.float()).abs().max()), float(want.float().abs().max())
+        close = close and gap <= EP_RANKS_ATOL_STEPS * 2.0 ** -7 * top
+        worst, scale = max(worst, gap), max(scale, top)
+    return close, worst, scale, aux_equal
+
+
+def _phase13_moe_ep(mesh, dev, main_launches):
+    """(a) The EP forward of deepseek-moe-16b on the (1, 1) mesh, its
+    parameters placed by ``shard_tree`` with ``ep_param_specs``, against
+    the dense forward on the same parameters: bit-equal logits and aux.
+    The EP forward is the main-path run (28 ``flash_attention`` launches).
+    Then each layer's MoE split over four model ranks
+    (:func:`_phase13_ep_ranks`)."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
+    from repro_torch.distributed.sharding import ep_param_specs, lm_batch_spec, shard_tree
+    from repro_torch.models import transformer as tf
+
+    cfg = _phase13_lm_config()
+    params, init_s = once(lambda: tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    placed = shard_tree(params, ep_param_specs(params), mesh)
+    check(all(a is b for a, b in zip(_leaves(params), _leaves(placed))),
+          f"phase 13: {cfg.name} placed by shard_tree on the (1, 1) mesh: every leaf is the "
+          f"drawn one (no copy)")
+    batch = next(lm_token_stream(LmDataConfig(vocab=cfg.vocab, seq_len=PHASE13_TOKENS, batch=1, seed=0)))
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    local = shard_tree({"t": tokens}, {"t": lm_batch_spec(mesh)}, mesh)["t"]
+    with torch.no_grad():
+        dense, dense_aux = tf.forward(cfg, params, tokens)
+        torch.cuda.reset_peak_memory_stats()
+        ((logits, aux), fwd_s), counts = _counted(
+            lambda: once(lambda: tf.forward(cfg, placed, local, mesh=mesh)), main_launches)
+        peak = torch.cuda.max_memory_allocated()
+        routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+        check(torch.equal(logits, dense) and torch.equal(aux, dense_aux),
+              f"phase 13: {cfg.name} EP forward over {PHASE13_TOKENS} tokens == the dense forward, "
+              f"bit for bit (logits and aux {float(aux):.6f})")
+        check(counts["flash_attention"] == cfg.n_layers and routes == {"wgmma": cfg.n_layers},
+              f"phase 13: the EP forward launched flash_attention {counts['flash_attention']} times, "
+              f"one a layer, all on wgmma ({routes})")
+        del logits, dense
+        _, fwd2_s = once(lambda: tf.forward(cfg, placed, local, mesh=mesh))
+        (ranks, ranks_s) = once(lambda: _phase13_ep_ranks(cfg, params, dev))
+    close, gap, top, aux_equal = ranks
+    check(close and aux_equal,
+          f"phase 13: every layer's MoE on {EP_MODEL_RANKS} model ranks (each its "
+          f"{cfg.moe.n_experts // EP_MODEL_RANKS} experts, the others' assignments dropped), the parts "
+          f"summed == moe_fwd within {EP_RANKS_ATOL_STEPS} bfloat16 steps of the largest entry "
+          f"(largest gap {gap:.4g} of {top:.4g}); every rank's aux == the dense aux, bit for bit")
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "tokens": PHASE13_TOKENS, "init_s": init_s,
+           "forward_first_s": fwd_s, "forward_s": fwd2_s, "tokens_per_s": PHASE13_TOKENS / fwd2_s,
+           "peak_device_bytes": peak, "flash_attention_launches": counts["flash_attention"],
+           "ep_ranks": {"model_ranks": EP_MODEL_RANKS, "max_abs_gap": gap, "max_abs_dense": top,
+                        "seconds": ranks_s}}
+    say(f"phase 13: {cfg.name} EP forward {fwd2_s:.4f} s ({PHASE13_TOKENS / fwd2_s:.0f} tokens/s), "
+        f"peak {peak / 1e9:.2f} GB; {EP_MODEL_RANKS} model ranks {ranks_s:.2f} s")
+    return rec
+
+
+def _phase13_online(held, dev, main_launches):
+    """(b) The online server on GIS at ``scale=1.0`` on a mesh service
+    (``maintenance="shared"``) from phase 2's DiDiC map: a clean leg and a
+    leg with an admit crash, a commit crash and shard 0 failed for 4 ticks,
+    each equal to the offline replay of its epochs and to the other leg,
+    and no resident state after serving."""
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.launch.mesh import make_replay_mesh
+
+    g, parts = held["gis"]["graph"], held["gis"]["parts"]
+    mesh = make_replay_mesh(device=dev)
+    config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic("gis", 4)
+    legs, rec = {}, {}
+    for leg, plan in (("clean", None), ("crash", _online_plan().fail_shard(1, shard=0, slices=4))):
+        svc = PartitionedGraphService(g, 4, config, device=dev, mesh=mesh, maintenance="shared")
+        svc.partition_with(parts.copy())
+        res, seconds, off, n, n_off = _online_leg(svc, g, GIS_CLASSES, "uniform", plan, dev, main_launches)
+        legs[leg] = res
+        resident = svc._resident_state_bytes()
+        rec[leg] = {"ops": res.ops_served, "seconds": seconds, "ops_per_s": res.ops_served / seconds,
+                    "ticks": res.ticks, "batches": res.batches_served, "epochs": len(res.epochs),
+                    "latency": res.latency, "health": res.health, "resident_state_bytes": resident,
+                    "frontier_gather_launches": n, "offline_frontier_gather_launches": n_off}
+        check(res.ops_served == ONLINE_REQUESTS and _served_equal(_served(res), off),
+              f"phase 13: gis online on the mesh, {leg}: {res.ops_served} ops over {res.ticks} ticks and "
+              f"{len(res.epochs)} epochs, equal to the offline replay of its epochs")
+        check(resident == 0 and res.health["resident_state_bytes"] == 0,
+              f"phase 13: gis online {leg}: no resident replay state after serving")
+        check(n > 0, f"phase 13: gis online {leg}: the replays went through frontier_gather ({n} launches)")
+    clean, crash = legs["clean"], legs["crash"]
+    check(crash.health["recoveries"] == 2 and crash.health["degraded_replays"] > 0
+          and _served_equal(_served(crash), _served(clean)) and crash.latency == clean.latency,
+          f"phase 13: the crash leg (2 recoveries, {crash.health['degraded_replays']} degraded replays) "
+          f"equals the clean leg on every counter and the latency report")
+    return rec
+
+
+def _phase13_gcn(held, mesh, dev):
+    """(c) The distributed GCN twin at world size 1 on GIS at ``scale=1.0``,
+    phase 2's DiDiC map folded onto the one shard, 60 steps; the halo bytes
+    of the random and DiDiC placements at 4 shards (host numbers). Returns
+    the record and the initial parameters (drawn on the CPU)."""
+    from repro_torch import distributed_gnn_training as twin
+    from repro_torch.core import partitioners
+    from repro_torch.models import gnn
+
+    g, parts = held["gis"]["graph"], held["gis"]["parts"]
+    table = twin.halo_table(g, {"random": partitioners.random_partition(g.n_nodes, 4, seed=0),
+                                "didic": parts})
+    check(table["didic"][0] < table["random"][0],
+          f"phase 13: GIS halo bytes a step at 4 shards: DiDiC {table['didic'][0]:.0f} < random "
+          f"{table['random'][0]:.0f} (edge cut {table['didic'][1]:.4f} against {table['random'][1]:.4f})")
+    params0 = gnn.gcn_init(twin.CFG, torch.Generator().manual_seed(0), device="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    run = twin.train(g, parts, mesh, steps=GCN_STEPS, params={k: v.to(dev) for k, v in params0.items()})
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    check(len(losses) == GCN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase 13: distributed GCN on GIS ({g.n_nodes:,} nodes, {run.layout.n_shards} shard), "
+          f"{GCN_STEPS} steps: losses finite, {losses[0]:.4f} -> {losses[-1]:.4f}")
+    rec = {"nodes": g.n_nodes, "shards": run.layout.n_shards, "steps": GCN_STEPS,
+           "halo_bytes_4_shards": {k: v[0] for k, v in table.items()},
+           "edge_cut_4_shards": {k: v[1] for k, v in table.items()},
+           "losses": losses, "train_s": run.seconds, "step_ms": run.seconds / GCN_STEPS * 1e3,
+           "evals": run.evals, "peak_device_bytes": peak}
+    say(f"phase 13: distributed GCN {rec['step_ms']:.2f} ms a step, peak {peak / 1e9:.3f} GB")
+    return rec, params0
+
+
+def phase13(held, dev, smi, main_launches):
+    """The model side of multi-device on an NCCL group of one rank, a
+    ``("data", "model")`` mesh of (1, 1): (a) deepseek-moe-16b's EP forward
+    against its dense forward; (b) the online server on a GIS mesh service;
+    (c) the distributed GCN twin on GIS, then its first losses against the
+    same run on the CPU (a gloo group of one rank)."""
+    import torch.distributed as dist
+
+    from repro_torch import distributed_gnn_training as twin
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    _open_nccl_world1()
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1},
+              f"phase 13: an NCCL group of {mesh.size} rank, mesh {mesh.shape} on {mesh.device}")
+        out = {"phase": 13, "card": smi, "mesh": mesh.shape}
+        t0 = time.perf_counter()
+        out["moe_ep"] = _phase13_moe_ep(mesh, dev, main_launches)
+        torch.cuda.empty_cache()
+        out["moe_ep"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["online"] = _phase13_online(held, dev, main_launches)
+        out["online_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["gcn"], params0 = _phase13_gcn(held, mesh, dev)
+        out["gcn"]["part_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        cpu = twin.train(held["gis"]["graph"], held["gis"]["parts"], make_host_mesh(device="cpu"),
+                         steps=GCN_CPU_STEPS, params=params0).losses
+    finally:
+        dist.destroy_process_group()
+    card = out["gcn"]["losses"][:GCN_CPU_STEPS]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    out["gcn"].update({"cpu_losses": cpu, "cpu_rel_gap": gap, "cpu_s": time.perf_counter() - t0})
+    check(gap <= GCN_CPU_RTOL, f"phase 13: the GCN's first {GCN_CPU_STEPS} losses on the card == the CPU's "
+                               f"within {GCN_CPU_RTOL} (largest relative gap {gap:.2e})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    say(f"phase 13: {out['phase_s']:.1f} s (budget {PHASE13_BUDGET_S:.0f} s"
+        + (", over" if out["phase_s"] > PHASE13_BUDGET_S else "") + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -2536,11 +2800,13 @@ def main() -> int:
     say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t11:.1f} s)")
     phase12(held, dev, smi, main_launches)
     say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    phase13(held, dev, smi, main_launches)
+    say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
-        "replays of phase 12): " + json.dumps(main_launches, sort_keys=True))
+        "replays of phase 12, the EP forward and the mesh online runs of phase 13): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -8,7 +8,8 @@ the serving paths of DIN and the LM (dense and MoE), and the training of
 those and of the GNNs and MACE: ``data``, ``models``, ``configs``,
 ``serving``, ``train``, ``optim``, ``launch`` (with the meshes over a
 ``torch.distributed`` process group) and ``distributed`` (the sharded
-replay's counters, placement, the halo exchange, MoE expert placement). It
+replay's counters, placement, the halo exchange, MoE expert placement, the
+sharding rules). It
 imports PyTorch and numpy, never JAX and never ``repro``.
 
 Every entry point takes ``device=None``, which means CUDA;

@@ -1,9 +1,9 @@
 """Online request front-end over :class:`PartitionedGraphService`.
 
-Twin of ``repro.core.online`` on one device. The paper evaluates partition
-quality by replaying pre-materialized access patterns (§5–6); a graph store
-in production serves operations as they arrive, which is where the traffic
-a partitioning causes becomes latency users see. This module serves them:
+Twin of ``repro.core.online``. The paper evaluates partition quality by
+replaying pre-materialized access patterns (§5–6); a graph store in
+production serves operations as they arrive, which is where the traffic a
+partitioning causes becomes latency users see. This module serves them:
 
 * **Simulated clients** — :func:`make_arrival_stream` draws a
   deterministic, seeded arrival process (``uniform`` | ``bursty`` |
@@ -25,8 +25,9 @@ a partitioning causes becomes latency users see. This module serves them:
   logger's latency samples. No wall-clock read, except ``run()``'s timing
   of a recovery.
 
-The batches replay through the service's engine on its device: GIS goes
-through the ``frontier_gather`` kernel on the card.
+The batches replay through the service's engine on its device (GIS
+through the ``frontier_gather`` kernel on the card), or through the
+sharded replay on a mesh service, cold: no batch keeps resident state.
 
 **Bit-exactness.** Per-op counters are independent per op and the
 aggregates are integer sums with pads adding zero, so the online totals
@@ -375,7 +376,9 @@ class OnlineServer:
         if cls is not None:
             q = self._queues[cls]
             live = [q[i] for i in range(min(self.batch_slots, len(q)))]
-            result = svc.run_ops(self._batch_log(cls, live))
+            # Cold: each batch is a new log, and resident state kept per log
+            # would grow with the requests served.
+            result = svc.run_ops(self._batch_log(cls, live), resident=False)
             if plan is not None:
                 plan.fire("serve:commit")
             self._fold(cls, live, result)

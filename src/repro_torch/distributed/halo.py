@@ -11,7 +11,10 @@ index table built on the host.
 Collective volume a step = S × B_max × F × bytes, where B_max tracks the
 edge cut: a better DiDiC partitioning shrinks the collective. The tables
 are built in numpy, array for array the JAX package's; the product runs
-on each rank in torch (``all_gather``, then ``index_add_``).
+on each rank in torch (``all_gather``, then ``index_add_``). The exchange
+is a ``torch.autograd.Function``, so a loss reaches the boundary rows of
+every rank: its backward reduce-scatters the gathered rows' gradient back
+to the ranks that exported them (:class:`_HaloExchange`).
 """
 
 from __future__ import annotations
@@ -144,6 +147,27 @@ def build_halo_program(
     )
 
 
+class _HaloExchange(torch.autograd.Function):
+    """Every data shard's boundary rows ``x_local[bidx]``, gathered along
+    ``axes`` in shard order to ``[S·B_max, F]``. Backward: the gathered
+    rows' gradient summed over the shards, each keeping its own block (a
+    reduce-scatter), added into its rows. Every rank of the data group must
+    take part in both directions."""
+
+    @staticmethod
+    def forward(ctx, x_local, bidx, mesh, axes):
+        ctx.save_for_backward(bidx)
+        ctx.mesh, ctx.axes, ctx.n_rows = mesh, axes, x_local.shape[0]
+        return torch.cat(mesh.all_gather(x_local[bidx], axis=axes), dim=0)
+
+    @staticmethod
+    def backward(ctx, grad_all):
+        (bidx,) = ctx.saved_tensors
+        mine = ctx.mesh.reduce_scatter(grad_all, axis=ctx.axes)    # [B_max, F]
+        grad = torch.zeros((ctx.n_rows, mine.shape[1]), dtype=mine.dtype, device=mine.device)
+        return grad.index_add_(0, bidx, mine), None, None, None
+
+
 def make_partitioned_spmm(
     program: HaloProgram, mesh, data_axes: Tuple[str, ...] = ("data",)
 ) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -152,11 +176,13 @@ def make_partitioned_spmm(
     ``all_gather``, its ghosts are read from the result, and its edges are
     summed into its rows with ``index_add_``. The JAX twin takes the whole
     ``[S·block, F]`` array sharded over the mesh; here each rank passes and
-    gets back its own block."""
+    gets back its own block: the block of its index along ``data_axes``,
+    exchanged with the ranks of its data group only (on a mesh with a model
+    axis, the ranks of one data column share a shard)."""
     if data_shard_count(mesh, data_axes) != program.n_shards:
         raise ValueError(f"the program has {program.n_shards} shards, the mesh "
                          f"{data_shard_count(mesh, data_axes)}")
-    r, dev, block = mesh.rank, mesh.device, program.block
+    r, dev, block = mesh.axis_index(data_axes), mesh.device, program.block
     esrc = torch.as_tensor(program.edge_src[r], dtype=torch.int64, device=dev)
     edst = torch.as_tensor(program.edge_dst[r], dtype=torch.int64, device=dev)
     coef = torch.as_tensor(program.edge_w[r] * program.edge_mask[r], device=dev)
@@ -164,7 +190,7 @@ def make_partitioned_spmm(
     gsrc = torch.as_tensor(program.ghost_src[r], dtype=torch.int64, device=dev)
 
     def spmm(x_local: torch.Tensor) -> torch.Tensor:
-        all_b = torch.cat(mesh.all_gather(x_local[bidx]), dim=0)   # [S·B_max, F]
+        all_b = _HaloExchange.apply(x_local, bidx, mesh, data_axes)  # [S·B_max, F]
         xx = torch.cat([x_local, all_b[gsrc]], dim=0)
         out = torch.zeros((block, x_local.shape[1]), dtype=x_local.dtype, device=x_local.device)
         return out.index_add_(0, edst, coef[:, None] * xx[esrc])

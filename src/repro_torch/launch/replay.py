@@ -25,9 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
-from datetime import timedelta
 from typing import Optional, Sequence
 
 import numpy as np
@@ -37,23 +35,6 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 COUNTERS = ("per_op_total", "per_op_global", "per_partition", "per_vertex")
-
-
-def _open_group(dev: torch.device) -> bool:
-    """Join torchrun's group, or open one rank of our own; returns whether
-    this call opened it."""
-    if dist.is_initialized():
-        return False
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    timeout = timedelta(seconds=120)
-    if "WORLD_SIZE" in os.environ:
-        if dev.type == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend, init_method="env://", timeout=timeout)
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
-                                timeout=timeout)
-    return True
 
 
 def _sync(dev: torch.device) -> None:
@@ -85,10 +66,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from repro_torch.core.traffic import execute_ops, generate_ops
     from repro_torch.core.traffic_sharded import replay_sharded
     from repro_torch.graphs import datasets
-    from repro_torch.launch.mesh import make_replay_mesh
+    from repro_torch.launch.mesh import make_replay_mesh, open_group
 
     dev = resolve_device(args.device)
-    opened = _open_group(dev)
+    opened = open_group(dev)
     try:
         mesh = make_replay_mesh(args.shards, device=dev)
         graph = datasets.load(args.dataset, scale=args.scale)

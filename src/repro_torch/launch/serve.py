@@ -6,9 +6,12 @@ kv-head ratio, vocab 512; dense for the MoE archs too, as the JAX launcher
 builds it, so both give the same tokens), DIN scoring and retrieval at a reduced size
 (10,000 items, 100 categories, history 50), or online graph serving
 (``--arch graph``: seeded clients over the partitioned GIS service at
-``scale=0.002``, fixed-slot admission batches, background DiDiC
-maintenance; no mesh), with the same sizes and seeds as the JAX launcher.
-Runs on the card unless ``--device cpu`` is given.
+``scale=0.002`` on a mesh over the process group, fixed-slot admission
+batches replayed sharded, background DiDiC maintenance shared by every
+rank), with the same sizes and seeds as the JAX launcher. Runs on the card
+unless ``--device cpu`` is given. ``--arch graph`` alone opens a group of
+one rank (NCCL on the card, gloo on the CPU); under ``torchrun`` every rank
+serves the same stream and rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
@@ -25,6 +28,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 
@@ -120,32 +124,40 @@ def serve_graph(n_requests: int, arrival: str, seed: int = 0, device=None):
     from repro_torch.core.framework import PartitionedGraphService
     from repro_torch.core.online import BackgroundMaintenance, OnlineServer, make_arrival_stream
     from repro_torch.graphs import datasets
+    from repro_torch.launch.mesh import make_replay_mesh, open_group
 
     dev = resolve_device(device)
-    graph = datasets.load("gis", scale=0.002, seed=seed)
-    k = 4
-    svc = PartitionedGraphService(graph, k, DidicConfig(k=k, iterations=12),
-                                  device=dev).partition_didic(seed=seed)
-    arrivals, t_counts = make_arrival_stream(
-        graph, ("gis_short", "gis_long"), n_requests, seed=seed, process=arrival,
-    )
-    server = OnlineServer(
-        svc, batch_slots=8, queue_limit=64,
-        maintenance=BackgroundMaintenance(svc, every=8),
-        slo={"gis_short": 8, "gis_long": 16},
-    )
-    server.submit_stream(arrivals, t_counts)
-    t0 = time.perf_counter()
-    result = server.run()
-    _sync(dev)
-    dt = time.perf_counter() - t0
-    print(f"[serve] graph/{arrival}: {result.ops_served} ops in "
-          f"{result.batches_served} batches over {result.ticks} ticks, "
-          f"{result.ops_served / dt:.1f} ops/s ({dev.type})")
-    for cls, rep in result.latency.items():
-        print(f"[serve]   {cls}: wait p50={rep['queue_wait_p50']} "
-              f"p99={rep['queue_wait_p99']} ticks (count={rep['count']})")
-    print(f"[serve]   slo_violations={result.health['slo_violations']}")
+    opened = open_group(dev)
+    try:
+        graph = datasets.load("gis", scale=0.002, seed=seed)
+        mesh = make_replay_mesh(device=dev)
+        k = 4
+        svc = PartitionedGraphService(graph, k, DidicConfig(k=k, iterations=12), device=dev,
+                                      mesh=mesh, maintenance="shared").partition_didic(seed=seed)
+        arrivals, t_counts = make_arrival_stream(
+            graph, ("gis_short", "gis_long"), n_requests, seed=seed, process=arrival,
+        )
+        server = OnlineServer(
+            svc, batch_slots=8, queue_limit=64,
+            maintenance=BackgroundMaintenance(svc, every=8),
+            slo={"gis_short": 8, "gis_long": 16},
+        )
+        server.submit_stream(arrivals, t_counts)
+        t0 = time.perf_counter()
+        result = server.run()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        if opened:
+            dist.destroy_process_group()
+    if mesh.rank == 0:
+        print(f"[serve] graph/{arrival}: {result.ops_served} ops in "
+              f"{result.batches_served} batches over {result.ticks} ticks on {mesh.size} "
+              f"shard(s), {result.ops_served / dt:.1f} ops/s ({dev.type})")
+        for cls, rep in result.latency.items():
+            print(f"[serve]   {cls}: wait p50={rep['queue_wait_p50']} "
+                  f"p99={rep['queue_wait_p99']} ticks (count={rep['count']})")
+        print(f"[serve]   slo_violations={result.health['slo_violations']}")
     return result
 
 

@@ -20,8 +20,11 @@ spare row that is cut off), and the combine gathers each assignment's
 output back to ``[N, k, d]`` and adds the k picks in a fixed order. The
 JAX package's ``segment_sum`` computes the same function.
 
-The JAX package's ``moe_fwd_ep`` (expert parallelism under a device mesh)
-has no twin yet (ROADMAP, queue A item 10).
+:func:`moe_fwd_ep` is the JAX package's expert-parallel ``moe_fwd_ep``
+over a :class:`~repro_torch.launch.mesh.HostMesh`: tokens stay on their
+data shard, each model rank holds ``E / model`` experts and routes every
+token of its shard, and one ``all_reduce`` over the model axis combines
+the experts' outputs. It is forward only (the serving path).
 """
 
 from __future__ import annotations
@@ -97,32 +100,29 @@ def route(p: Params, xf: torch.Tensor, cfg: MoeConfig):
     return probs, gate_vals, expert_idx, aux
 
 
-def moe_fwd(p: Params, x: torch.Tensor, cfg: MoeConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, T, D] → (y: [B, T, D], aux_loss scalar)."""
-    b, t, d = x.shape
-    n = b * t
-    xf = x.reshape(n, d)
-    e, k = cfg.n_experts, cfg.top_k
-    dev = x.device
-    _, gate_vals, expert_idx, aux = route(p, xf, cfg)
-
-    # ---- sort-based grouped dispatch
-    cap = capacity(n, cfg)
-    flat_expert = expert_idx.reshape(-1)                        # [N*k], token-major
-    order = torch.argsort(flat_expert, stable=True)
-    se = flat_expert[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=dev, dtype=se.dtype))  # side "left"
-    slots = torch.arange(n * k, device=dev) - starts[se]
-    keep = slots < cap                                          # overflow drops
-    row = torch.where(keep, se * cap + slots, e * cap)          # e·cap: the spare row
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
+def _experts(p: Params, xf: torch.Tensor, sort_key: torch.Tensor, gate_vals: torch.Tensor,
+             n_experts: int, cap: int, k: int) -> torch.Tensor:
+    """Sort-based grouped dispatch of ``xf [N, d]`` into ``n_experts``
+    buffers of ``cap`` slots, the stacked SwiGLU experts of ``p``, and the
+    combine back to ``[N, d]``. ``sort_key [N·k]`` is each assignment's
+    expert (token-major); a key of ``n_experts`` marks an assignment to no
+    expert here, which sorts last and drops."""
+    n, d = xf.shape
+    dev = xf.device
+    order = torch.argsort(sort_key, stable=True)
+    se = sort_key[order]
+    starts = torch.searchsorted(se, torch.arange(n_experts, device=dev, dtype=se.dtype))  # side "left"
+    slots = torch.arange(n * k, device=dev) - starts[torch.clamp(se, max=n_experts - 1)]
+    keep = (se < n_experts) & (slots < cap)                     # foreign and overflow drop
+    row = torch.where(keep, se * cap + slots, n_experts * cap)  # n_experts·cap: the spare row
+    buf = torch.zeros((n_experts * cap + 1, d), dtype=xf.dtype, device=dev)
     buf[row] = xf[order // k]                                   # at most one token a kept row
-    buf = buf[: e * cap].view(e, cap, d)
+    buf = buf[: n_experts * cap].view(n_experts, cap, d)
 
     # ---- stacked expert FFN (SwiGLU), E-major batched products
     g = torch.bmm(buf, p["w_gate"])
     h = g * torch.sigmoid(g) * torch.bmm(buf, p["w_up"])
-    out_buf = torch.bmm(h, p["w_down"]).view(e * cap, d)
+    out_buf = torch.bmm(h, p["w_down"]).view(n_experts * cap, d)
 
     # ---- combine: each assignment's row in token-major order, weighted,
     # then the k picks of a token added in pick order
@@ -135,7 +135,57 @@ def moe_fwd(p: Params, x: torch.Tensor, cfg: MoeConfig) -> Tuple[torch.Tensor, t
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
+    return y
 
+
+def moe_fwd(p: Params, x: torch.Tensor, cfg: MoeConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, D] → (y: [B, T, D], aux_loss scalar)."""
+    b, t, d = x.shape
+    n = b * t
+    xf = x.reshape(n, d)
+    _, gate_vals, expert_idx, aux = route(p, xf, cfg)
+    y = _experts(p, xf, expert_idx.reshape(-1), gate_vals, cfg.n_experts, capacity(n, cfg), cfg.top_k)
+    if cfg.n_shared:
+        y = y + swiglu(p["shared"], xf)
+    return y.reshape(b, t, d), aux
+
+
+def moe_fwd_ep(p: Params, x: torch.Tensor, cfg: MoeConfig, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with local dispatch (twin of the JAX
+    ``moe_fwd_ep``) on this rank of a ``("data", "model")`` mesh.
+
+    ``x [B_loc, T, D]`` is the rank's data shard of the tokens; ``p`` holds
+    the whole router and shared expert and this model rank's experts
+    ``[e0, e0 + E_loc)`` (``w_gate``/``w_up``/``w_down`` sliced on E, as
+    :func:`~repro_torch.distributed.sharding.shard_tree` places them with
+    :func:`~repro_torch.distributed.sharding.ep_param_specs`). Every model rank routes all of the shard's tokens, with
+    the capacity of the local token count; assignments to other ranks'
+    experts sort last and drop here; one ``all_reduce`` over the model
+    axis sums the experts' outputs, then the shared expert is added.
+    ``aux`` is the per-shard loss averaged over the data axis, as the JAX
+    ``pmean``. On a (1, 1) mesh the result is :func:`moe_fwd`'s, bit for
+    bit.
+
+    Forward only: a call that would need a gradient raises (the EP
+    backward is queued, ROADMAP A10)."""
+    leaves = [x, *(v for t in p.values() for v in (t.values() if isinstance(t, dict) else (t,)))]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        raise NotImplementedError("moe_fwd_ep is forward only: its backward is queued "
+                                  "(ROADMAP A10, the EP backward); use moe_fwd to train")
+    b, t, d = x.shape
+    n = b * t
+    xf = x.reshape(n, d)
+    e_loc = p["w_gate"].shape[0]
+    if e_loc * mesh.shape["model"] != cfg.n_experts:
+        raise ValueError(f"{e_loc} local experts on {mesh.shape['model']} model ranks "
+                         f"are not the config's {cfg.n_experts}")
+    _, gate_vals, expert_idx, aux = route(p, xf, cfg)
+    aux = mesh.all_reduce(aux, axis="data") / mesh.shape["data"]
+
+    local_e = expert_idx.reshape(-1) - mesh.axis_index("model") * e_loc
+    sort_key = torch.where((local_e >= 0) & (local_e < e_loc), local_e, e_loc)
+    y = _experts(p, xf, sort_key, gate_vals, e_loc, capacity(n, cfg), cfg.top_k)
+    y = mesh.all_reduce(y, axis="model")
     if cfg.n_shared:
         y = y + swiglu(p["shared"], xf)
     return y.reshape(b, t, d), aux

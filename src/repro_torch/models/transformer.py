@@ -10,13 +10,18 @@ is differentiable there (the kernel's backward is its plain version);
 KV cache, which it updates in place.
 
 :class:`TransformerConfig` keeps the fields that change what is computed.
-The JAX package's ``remat``, ``unroll``, ``moe_impl``, ``attn_flat_layout``
-and ``use_flash_kernel`` only steer JAX tracing and kernel dispatch, so they
+The JAX package's ``remat``, ``unroll``, ``attn_flat_layout`` and
+``use_flash_kernel`` only steer JAX tracing and kernel dispatch, so they
 have no twin here (the device decides the kernel). A config with ``moe`` set
 runs :func:`~repro_torch.models.moe.moe_fwd` in place of the dense SwiGLU,
-in prefill and in decode; the JAX package's expert-parallel ``moe_impl``
-needs a device mesh and waits for the port's multi-device slice (ROADMAP,
-queue A item 10).
+in prefill and in decode. The JAX package's ``moe_impl="ep_shardmap"``
+is a mesh passed to :func:`forward`: it then runs
+:func:`~repro_torch.models.moe.moe_fwd_ep` on that
+:class:`~repro_torch.launch.mesh.HostMesh`, over this rank's data shard of
+the tokens and its parameters as placed by
+:func:`~repro_torch.distributed.sharding.shard_tree` with
+:func:`~repro_torch.distributed.sharding.ep_param_specs` (the routed
+experts split, the rest whole); decode stays dense, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoeConfig, moe_fwd, moe_init
+from repro_torch.models.moe import MoeConfig, moe_fwd, moe_fwd_ep, moe_init
 
 Params = Dict[str, Any]
 
@@ -131,28 +136,39 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 # ------------------------------------------------------------------ forward
-def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The layer's feed-forward on ``h``: the MoE (with its aux loss) or the
-    dense SwiGLU (aux None)."""
+def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward on ``h``: the MoE (with its aux loss;
+    expert parallel when a mesh is given) or the dense SwiGLU (aux None)."""
     if cfg.moe:
+        if mesh is not None:
+            return moe_fwd_ep(lp["moe"], L.rmsnorm(lp["ln2"], h), cfg.moe, mesh)
         return moe_fwd(lp["moe"], L.rmsnorm(lp["ln2"], h), cfg.moe)
     return L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], h)), None
 
 
-def _layer_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _layer_fwd(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+               mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = x + L.attention_fwd(lp["attn"], L.rmsnorm(lp["ln1"], x), cfg.n_heads, cfg.n_kv_heads,
                             rope_theta=cfg.rope_theta)
-    y, aux = _ffn(cfg, lp, h)
+    y, aux = _ffn(cfg, lp, h, mesh)
     return h + y, aux
 
 
-def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] → (logits [B, T, V], aux_loss summed over the layers;
-    0 for a dense model)."""
+    0 for a dense model).
+
+    With a ``mesh`` (this rank's ``HostMesh``) the MoE runs expert
+    parallel: ``tokens`` is the rank's data shard and ``params`` its
+    placement by ``ep_param_specs``; the logits are the shard's and ``aux``
+    is averaged over the data axis."""
+    if mesh is not None and not cfg.moe:
+        raise ValueError("an expert-parallel forward (a mesh) needs an MoE config")
     x = params["embed"][tokens.long()]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _layer_fwd(cfg, layer_params(params, i), x)
+        x, a = _layer_fwd(cfg, layer_params(params, i), x, mesh)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(params["ln_f"], x)
