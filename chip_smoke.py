@@ -40,8 +40,11 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    (three insert methods at 5 % and 25 % dynamism), Stress (25 %, one cold
    DiDiC iteration; on GIS at ``scale=0.01`` through ``bell_matmul`` too),
    Dynamic (5 maintained slices of 5 % against the unmaintained map;
-   Twitter twice), Insert with vertex growth (4 slices, 30 % inserts) and
-   the maintenance cost; GIS replays a 2,000-op log here;
+   Twitter twice), Insert with vertex growth (4 slices, 30 % inserts; its
+   first growth slice attaches a delta-overlay store, every grown graph is
+   adopted by the store's engine and DiDiC tables, each adoption and table
+   re-pad timed beside a fresh engine's build) and the maintenance cost;
+   GIS replays a 2,000-op log here;
 7. the hot-vertex placement and the paper's tables, run after phase 6:
    (a) at ``scale=1.0``, k=4, from phase 2's DiDiC maps, a service with an
    exception table of 128 replays each dataset's log (GIS: phase 6's
@@ -58,7 +61,8 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    every 2nd round-tripped through their bytes) under a pre-commit crash,
    two maintenance timeouts and a post-commit crash, bit-exact against an
    uninterrupted run, with 2 recoveries, 2 retries and a peak device memory
-   within 10 % of the uninterrupted run's; (b) the online server on GIS
+   within 10 % of the uninterrupted run's (both legs grow through one
+   store); (b) the online server on GIS
    (48 ``gis_short``/``gis_long`` requests under each arrival process, 8-slot
    batches, a 64-op queue, background DiDiC every 8 ticks, SLOs of 8 and 16
    ticks), a clean leg and a leg with an admit and a commit crash, equal to
@@ -121,7 +125,19 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     requests, each equal to the offline replay of its epochs and to the
     other, with no resident state left; (c) the distributed GCN twin on
     GIS at ``scale=1.0`` folded onto the one shard, 60 steps, its first 5
-    losses against the same run on the CPU (a gloo group of one rank).
+    losses against the same run on the CPU (a gloo group of one rank);
+14. after phase 13, the capacity store on the card (budget 40 s; past
+    1,050 s by the script's clock it cuts its own GIS slices): (a) on
+    filesystem at ``scale=1.0`` a store filled exactly is carried and one
+    more growth log compacts, each grown graph's replay equal to a fresh
+    storeless engine's and to the scalar oracle on 64 ops; (b) a crash at
+    ``apply:compact`` in a 3-slice growth run on Twitter with tiny headroom,
+    recovered bit-exact against the uninterrupted run; (c) GIS at ``scale=1.0``, 4
+    growth slices within capacity: one engine object, its capacity buffers
+    never reallocated, ``frontier_gather`` on every replay, each adoption
+    timed beside a rebuild; (d) on an NCCL group of one rank, Twitter's
+    sharded maintenance before and after growth through one capacity mesh
+    program, its T_G % in the band of the single-device overlay refine.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -131,8 +147,9 @@ and phase 10's trainer runs on the card
 (``flash_attention``), every replay
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables, phase 8's uninterrupted, recovered and
-online runs, phase 12's sharded GIS replays and phase 13's online runs
-(``frontier_gather``), and phase 13's EP forward (``flash_attention``);
+online runs, phase 12's sharded GIS replays, phase 13's online runs and
+phase 14's replays and runs (``frontier_gather``), and phase 13's EP
+forward (``flash_attention``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``). The
@@ -149,6 +166,7 @@ code is not 0 and the last line is never printed. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -656,6 +674,38 @@ def _engine_build_seconds(graph, pattern, dev) -> float:
     return once(build)[1]
 
 
+@contextlib.contextmanager
+def _growth_timers():
+    """Time, the card synchronised on both sides, each adoption of a grown
+    graph by a store's engine (``adopt_s``; calls that find the engine
+    already on the graph are not counted) and each build of the overlay
+    DiDiC tables (``repad_s``), while the block runs."""
+    from repro_torch.core import didic
+    from repro_torch.core.traffic_batched import BatchedTrafficEngine
+
+    timers = {"adopt_s": [], "repad_s": []}
+    adopt, tables = BatchedTrafficEngine.adopt, didic._overlay_tables
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = args[0]._struct_version if key == "adopt_s" else None
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if key != "adopt_s" or args[0]._struct_version != before:
+                timers[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    BatchedTrafficEngine.adopt = timed(adopt, "adopt_s")
+    didic._overlay_tables = timed(tables, "repad_s")
+    try:
+        yield timers
+    finally:
+        BatchedTrafficEngine.adopt, didic._overlay_tables = adopt, tables
+
+
 def _pg(res) -> float:
     return 100.0 * res.percent_global
 
@@ -768,38 +818,55 @@ def phase6_dataset(name, graph, start, dev, main_launches, held):
               f"{name} dynamic run twice: identical records and final map")
 
     # Insert with vertex growth: least_traffic, 30 % of the units allocate a
-    # vertex, 4 slices of 5 %, maintenance every second slice.
+    # vertex, 4 slices of 5 %, maintenance every second slice. The first
+    # growth slice attaches a store to the dataset's graph; every grown
+    # graph is adopted by its engine and DiDiC tables.
     grown = []
     svc = _service(graph, config, dev, parts0, state0)
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    growth, counts = _counted(lambda: DynamicExperimentRuntime(svc, "least_traffic", seed=0).run(
-        ops, n_slices=4, amount=0.05, maintain_every=2, insert_rate=0.3,
-        on_slice=lambda i, r: grown.append(_bare(svc.graph))), main_launches)
+    with _growth_timers() as timers:
+        growth, counts = _counted(lambda: DynamicExperimentRuntime(svc, "least_traffic", seed=0).run(
+            ops, n_slices=4, amount=0.05, maintain_every=2, insert_rate=0.3,
+            on_slice=lambda i, r: grown.append(_bare(svc.graph))), main_launches)
     fg += counts["frontier_gather"]
     growth_peak = torch.cuda.max_memory_allocated()
     n_grown = svc.graph.n_nodes - graph.n_nodes
+    store = svc.graph.store
     check(n_grown == sum(r.inserted for r in growth.records) > 0,
           f"{name} growth: {n_grown} vertices grown over 4 slices, one per insert unit")
+    check(store is not None and graph.store is store and store.compactions == 0
+          and len(timers["adopt_s"]) == 4,
+          f"{name} growth: one store (n_cap {store.n_cap}, e_cap {store.e_cap}) carried over the "
+          f"4 slices, the engine adopting each grown graph ({len(timers['adopt_s'])} adoptions)")
     _oracle_check(svc.graph, ops, svc.parts, dev, f"{name} growth, last grown graph ({svc.graph.n_nodes} vertices)")
     growth_replay_s = list(svc.run_ops.seconds)
     growth_refine_s = list(svc.runtime.maintain.seconds)
     collect(svc)
-    del svc
+    geometry = {"n_cap": store.n_cap, "e_cap": store.e_cap, "base_nodes": store.base_nodes,
+                "base_edges": store.base_edges, "compactions": store.compactions,
+                "headroom": store.headroom}
+    del svc, store
+    # The later phases start from the storeless graph, as before.
+    graph.store = None
     builds = [_engine_build_seconds(g, ops.pattern, dev) for g in grown]
     del grown
     out["growth"] = {
         "records": [{"T_G_percent": 100 * r.percent_global, "inserted": r.inserted,
                      "migrated": r.migrated, "maintained": r.maintained} for r in growth.records],
         "grown_vertices": n_grown, "replay_s": growth_replay_s, "refine_s": growth_refine_s,
-        "engine_build_s": builds,
+        "engine_build_s": builds, "adopt_s": timers["adopt_s"],
+        "table_repad_s": timers["repad_s"], "store": geometry,
         "peak_device_bytes": growth_peak,
     }
     say(f"phase 6: {name} growth: +{n_grown} vertices, T_G % per slice "
         + ", ".join(f"{r['T_G_percent']:.4f}" for r in out["growth"]["records"])
-        + "; engine build a growth slice " + ", ".join(f"{b:.2f}" for b in builds)
-        + " s; maintenance on the grown graphs (DiDiC's product rebuilt) "
-        + ", ".join(f"{t:.2f}" for t in growth_refine_s) + f" s; peak {growth_peak} B")
+        + "; engine adoption a growth slice " + ", ".join(f"{t:.3f}" for t in timers["adopt_s"])
+        + " s against a fresh build " + ", ".join(f"{b:.2f}" for b in builds)
+        + " s; DiDiC table re-pads " + ", ".join(f"{t:.3f}" for t in timers["repad_s"])
+        + " s; maintenance on the grown graphs "
+        + ", ".join(f"{t:.2f}" for t in growth_refine_s) + f" s; store {json.dumps(geometry)}; "
+        f"peak {growth_peak} B")
 
     # Maintenance cost: one warm iteration against phase 2's 100.
     _, one_s = once(lambda: didic_refine(graph, parts0, config, state=state0, iterations=1, device=dev))
@@ -1033,6 +1100,10 @@ def phase8_recovery(name, graph, start, dev, main_launches):
         main_launches)
     rec_peak = torch.cuda.max_memory_allocated()
     fg += counts["frontier_gather"]
+    # Both legs grew through the store the first attached to the dataset's
+    # graph; the later phases start from the storeless graph, as before.
+    geometry = (graph.store.n_cap, graph.store.e_cap) if graph.store is not None else None
+    graph.store = None
     health = loggers[-1].health_report()
     n = RECOVERY_RUN["n_slices"]
     say(json.dumps({
@@ -1047,6 +1118,7 @@ def phase8_recovery(name, graph, start, dev, main_launches):
             "peak_device_bytes": [ref_peak, rec_peak],
             "T_G_percent": [_pg(base[i]) for i in range(n)],
             "grown_vertices": int(sum(r.inserted for r in out.records)),
+            "store_capacity": geometry,
             "frontier_gather_launches": fg,
         }}))
     check(stats.recoveries == health["recoveries"] == 2 and stats.journal_rolled_back >= 1
@@ -2723,6 +2795,276 @@ def phase13(held, dev, smi, main_launches):
         + (", over" if out["phase_s"] > PHASE13_BUDGET_S else "") + ")")
 
 
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+PHASE14_BUDGET_S = 40.0
+PHASE14_CUT_AT_S = 1050.0     # past this on the script's clock, (c) cuts its slices
+PHASE14_SLICE = 0.0005        # a growth slice: 0.05 % of the vertices as units
+PHASE14_GIS_OPS = 128         # (c)'s GIS log: the first ops of phase 6's (one chunk)
+PHASE14_GIS_SLICES = (4, 2)   # (c)'s growth slices, and after the cut
+
+
+def _geometry(store) -> dict:
+    return {"n_cap": store.n_cap, "e_cap": store.e_cap, "base_nodes": store.base_nodes,
+            "base_edges": store.base_edges, "compactions": store.compactions,
+            "headroom": store.headroom}
+
+
+def _phase14_boundaries(held, dev, main_launches):
+    """(a) Filesystem at ``scale=1.0``: a store filled exactly by one growth
+    log is carried; the next log compacts. Each grown graph's replay (a
+    main-path run) equals a fresh storeless engine's and the scalar oracle
+    on 64 ops."""
+    from repro_torch.core.framework import InsertPartitioner, PartitionedGraphService
+    from repro_torch.core.traffic import generate_ops
+    from repro_torch.core.traffic_batched import BatchedTrafficEngine
+
+    g = _bare(held["filesystem"]["graph"])
+    ops = generate_ops(g, n_ops=N_OPS, seed=0)
+    svc = PartitionedGraphService(g, 4, device=dev).partition_with(held["filesystem"]["parts"].copy())
+    ip = InsertPartitioner("random", 4, seed=0)
+    log = ip.allocate(svc.parts, PHASE14_SLICE, insert_rate=0.5, graph=g)
+    nv, ne = log.n_new_vertices, int(log.insert_senders.shape[0])
+    store = g.ensure_store(n_cap=g.n_nodes + nv, e_cap=g.n_edges + ne)
+    svc.apply_dynamism(log)
+    check(svc.graph.store is store and store.compactions == 0 and store.delta_nodes(svc.graph) == nv
+          and store.delta_edges(svc.graph) == ne and not store.would_overflow(svc.graph, 0, 0)
+          and store.would_overflow(svc.graph, 1, 0),
+          f"phase 14 (a): filesystem +{nv} vertices, +{ne} edges fill the store exactly; carried, "
+          f"no compaction")
+    out = {"exactly_full": _geometry(store)}
+    for what in ("store exactly full", "after the compaction"):
+        res, _ = _counted(lambda: svc.run_ops(ops), main_launches)
+        fresh = BatchedTrafficEngine(_bare(svc.graph), ops.pattern, device=dev).run(
+            ops, svc.parts, 4, ops.t_l, ops.t_pg)
+        check(_exact(res, fresh), f"phase 14 (a): filesystem, {what}: the store's engine == a fresh "
+                                  f"storeless engine, {ops.n_ops} ops, all four counters")
+        _oracle_check(svc.graph, ops, svc.parts, dev, f"phase 14 (a): filesystem, {what}")
+        if what == "store exactly full":
+            log = ip.allocate(svc.parts, PHASE14_SLICE, insert_rate=0.5, graph=svc.graph)
+            svc.apply_dynamism(log)
+            new = svc.graph.store
+            check(new is not store and new.compactions == store.compactions + 1 == 1
+                  and new.delta_nodes(svc.graph) == log.n_new_vertices
+                  and new.delta_edges(svc.graph) == int(log.insert_senders.shape[0]),
+                  f"phase 14 (a): one more growth log (+{log.n_new_vertices} vertices) compacts: a "
+                  f"new store (n_cap {new.n_cap}), its delta exactly that log")
+            out["compacted"] = _geometry(new)
+    return out
+
+
+def _phase14_compact_crash(held, dev, main_launches):
+    """(b) A crash at ``apply:compact`` on Twitter at ``scale=1.0``: a
+    3-slice growth run (random inserts, maintenance at the third slice)
+    with a store of tiny headroom, so slice 0 compacts; recovered
+    (snapshots every 2 slices) bit-exact against the uninterrupted run."""
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
+    from repro_torch.core.fault import FaultPlan, RetryPolicy
+    from repro_torch.core.framework import PartitionedGraphService
+    from repro_torch.core.recovery import DynamismJournal, run_with_recovery
+    from repro_torch.core.traffic import generate_ops
+
+    base = _bare(held["twitter"]["graph"])
+    parts = held["twitter"]["parts"]
+    config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic("twitter", 4)
+    ops = generate_ops(base, n_ops=N_OPS, seed=0)
+    kw = dict(maintain_every=3, insert_rate=0.5)
+
+    def make():
+        base.ensure_store(n_cap=base.n_nodes + 4, e_cap=base.n_edges + 16)
+        svc = PartitionedGraphService(base, 4, config, device=dev).partition_with(parts.copy())
+        return DynamicExperimentRuntime(svc, "random", seed=0)
+
+    want, got, peaks = {}, {}, []
+    torch.cuda.reset_peak_memory_stats()
+    ref_rt = make()
+    (ref, ref_s), _ = _counted(lambda: once(lambda: ref_rt.run(
+        ops, 3, PHASE14_SLICE, on_slice=lambda i, r: want.__setitem__(i, r), **kw)), main_launches)
+    peaks.append(torch.cuda.max_memory_allocated())
+    compactions = ref_rt.service.graph.store.compactions
+    del ref_rt
+    torch.cuda.reset_peak_memory_stats()
+    ((out, stats), rec_s), _ = _counted(lambda: once(lambda: run_with_recovery(
+        make, base, ops, 3, PHASE14_SLICE, fault_plan=FaultPlan().crash(0, site="apply:compact"),
+        journal=DynamismJournal(), retry_policy=RetryPolicy(), snapshot_every=2,
+        on_slice=lambda i, r: got.__setitem__(i, r), **kw)), main_launches)
+    peaks.append(torch.cuda.max_memory_allocated())
+    check(compactions >= 1 and stats.recoveries == 1 and stats.journal_rolled_back >= 1
+          and stats.resumed_from == [0],
+          f"phase 14 (b): the uninterrupted run compacted ({compactions}); the crash at apply:compact "
+          f"recovered once, its pending entry rolled back")
+    check(all(_exact(want[i], got[i]) for i in range(3)) and ref.records == out.records
+          and np.array_equal(ref.parts, out.parts),
+          "phase 14 (b): recovered run == uninterrupted run, all four counters on each of 3 slices, "
+          "records and final map")
+    return {"uninterrupted_s": ref_s, "recovered_s": rec_s, "compactions": compactions,
+            "restore_s": stats.restore_s, "peak_device_bytes": peaks}
+
+
+def _phase14_gis(held, dev, main_launches, n_slices):
+    """(c) GIS at ``scale=1.0``: growth slices within capacity on a service
+    armed by ``prepare_growth``. The engine is one object whose capacity
+    buffers are never reallocated, each replay (a main-path run) launches
+    ``frontier_gather``, the peak stays flat, and each adoption is timed
+    beside a fresh engine's build on the same grown graph (neither with the
+    grown graph's symmetrization, timed apart, nor with the whole-graph
+    layout, which an adoption drops and a full pass builds again); the
+    last slice's replay equals the fresh engine's. Then the overlay DiDiC
+    step on the grown graph, twice: bit-identical."""
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core.didic import didic_refine
+    from repro_torch.core.framework import InsertPartitioner, PartitionedGraphService
+    from repro_torch.core.traffic import OpLog, generate_ops
+    from repro_torch.core.traffic_batched import BatchedTrafficEngine, get_engine
+
+    g = _bare(held["gis"]["graph"])
+    whole = generate_ops(g, n_ops=N_OPS_GIS_DYNAMIC, seed=0)
+    ops = OpLog(whole.pattern, whole.starts[:PHASE14_GIS_OPS].copy(),
+                whole.ends[:PHASE14_GIS_OPS].copy(), whole.t_l, whole.t_pg)
+    svc = PartitionedGraphService(g, 4, device=dev).partition_with(held["gis"]["parts"].copy())
+    prep = once(svc.prepare_growth)[1]
+    eng = get_engine(g, ops.pattern, device=dev)
+    buffers = [t.data_ptr() for t in (eng._lon_buf, eng._lat_buf, eng._rank_buf)]
+    ip = InsertPartitioner("random", 4, seed=0)
+    out = {"prepare_s": prep, "symmetrize_s": [], "adopt_s": [], "rebuild_s": [],
+           "peak_device_bytes": [], "resident_bytes": [], "frontier_gather_launches": []}
+    for i in range(n_slices):
+        log = ip.allocate(svc.parts, PHASE14_SLICE, insert_rate=0.5, graph=svc.graph)
+        svc.apply_dynamism(log)
+        # The grown graph's symmetrized edge list is host work an adoption
+        # and a rebuild both need (DiDiC's tables too): built once, apart.
+        out["symmetrize_s"].append(once(lambda: svc.graph.undirected)[1])
+        torch.cuda.reset_peak_memory_stats()
+        same, adopt_s = once(lambda: get_engine(svc.graph, ops.pattern, device=dev))
+        out["resident_bytes"].append(torch.cuda.memory_allocated())
+        res, counts = _counted(lambda: svc.run_ops(ops), main_launches)
+        out["peak_device_bytes"].append(torch.cuda.max_memory_allocated())
+        out["adopt_s"].append(adopt_s)
+        out["frontier_gather_launches"].append(counts["frontier_gather"])
+        check(same is eng and eng.n_nodes == svc.graph.n_nodes and counts["frontier_gather"] > 0
+              and [t.data_ptr() for t in (eng._lon_buf, eng._lat_buf, eng._rank_buf)] == buffers,
+              f"phase 14 (c): gis growth slice {i} (+{log.n_new_vertices} vertices): the same engine "
+              f"adopted it in {adopt_s:.3f} s into the buffers it holds; the replay launched "
+              f"frontier_gather {counts['frontier_gather']} times")
+        bare = _bare(svc.graph)
+        bare.__dict__["undirected"] = svc.graph.undirected
+        fresh, rebuild_s = once(lambda: BatchedTrafficEngine(bare, ops.pattern, device=dev))
+        out["rebuild_s"].append(rebuild_s)
+        if i == n_slices - 1:
+            check(_exact(res, fresh.run(ops, svc.parts, 4, ops.t_l, ops.t_pg)),
+                  f"phase 14 (c): gis after {n_slices} growth slices: the adopted engine's replay == a "
+                  f"fresh engine's, all four counters")
+        del fresh, bare
+    store = svc.graph.store
+    peaks, held_b = out["peak_device_bytes"], out["resident_bytes"]
+    check(store.compactions == 0 and max(peaks[1:], default=peaks[0]) <= 1.1 * peaks[0]
+          and max(held_b[1:], default=held_b[0]) <= 1.01 * held_b[0],
+          f"phase 14 (c): gis {n_slices} slices within capacity (n_cap {store.n_cap}), peak per slice "
+          f"{peaks} B, flat within 10 % of slice 0's; held after each adoption {held_b} B, within 1 %")
+    out["store"] = _geometry(store)
+    # The overlay DiDiC step on the grown graph: capacity-shaped state, dead
+    # rows exactly 0, and two runs equal bit for bit (no float atomics).
+    config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic("gis", 4)
+    runs = [once(lambda: didic_refine(svc.graph, svc.parts, config, device=dev)) for _ in range(2)]
+    (p1, s1), (p2, s2) = runs[0][0], runs[1][0]
+    n = svc.graph.n_nodes
+    check(s1.w.shape[0] == store.n_cap + 1 and not s1.w[n:].any() and not s1.l[n:].any()
+          and np.array_equal(p1, p2) and all(torch.equal(getattr(s1, f), getattr(s2, f))
+                                             for f in ("w", "l", "parts", "beta")),
+          f"phase 14 (c): gis overlay refine on the grown graph: {s1.w.shape[0]} state rows, dead "
+          f"rows 0, two runs bit-identical ({runs[0][1]:.3f} s with the tables' build, "
+          f"{runs[1][1]:.3f} s)")
+    out["overlay_refine_s"] = [runs[0][1], runs[1][1]]
+    return out
+
+
+def _phase14_mesh(held, dev, smi):
+    """(d) On an NCCL group of one rank: a Twitter mesh service with
+    ``maintenance="sharded"`` refines (one iteration, cold from phase 2's
+    DiDiC map) before and after one growth slice within capacity through
+    one ``_CapacityMeshProgram``; each map's T_G % (a sharded replay) lies
+    in ``0.25·ref + 0.01`` of the single-device overlay refine's from the
+    same map."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.core.didic import didic_refine
+    from repro_torch.core.framework import InsertPartitioner, PartitionedGraphService
+    from repro_torch.core.traffic import execute_ops, generate_ops
+    from repro_torch.launch.mesh import make_replay_mesh
+
+    g = _bare(held["twitter"]["graph"])
+    config = PaperExperimentConfig(didic_iterations=DIDIC_ITERATIONS).didic("twitter", 4)
+    ops = generate_ops(g, n_ops=N_OPS, seed=0)
+    out = {}
+    _open_nccl_world1()
+    try:
+        mesh = make_replay_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.size == 1,
+              f"phase 14 (d): an NCCL group of {mesh.size} rank on {mesh.device}")
+        svc = PartitionedGraphService(g, 4, config, mesh=mesh, maintenance="sharded")
+        svc.partition_with(held["twitter"]["parts"].copy())
+        svc.prepare_growth()
+        key = ("mesh_program", mesh, ("data",))
+        prog = g.store.caches[key]
+        ip = InsertPartitioner("random", 4, seed=0)
+        for leg in ("before growth", "after growth"):
+            if leg == "after growth":
+                log = ip.allocate(svc.parts, PHASE14_SLICE, insert_rate=0.5, graph=svc.graph)
+                svc.apply_dynamism(log)
+            start = svc.parts.copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.maintain()
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+            mesh_pg = _pg(svc.run_ops(ops))
+            single, _ = didic_refine(svc.graph, start, config, device=dev)
+            single_pg = _pg(execute_ops(svc.graph, ops, single, 4, engine="batched", device=dev))
+            check(svc.graph.store.caches.get(key) is prog and prog.extents == (svc.graph.n_nodes,
+                                                                              svc.graph.n_edges)
+                  and abs(mesh_pg - single_pg) <= 0.25 * single_pg + 0.01,
+                  f"phase 14 (d): twitter {leg}: sharded maintenance through the one capacity mesh "
+                  f"program, T_G % {mesh_pg:.4f} in the band of the single-device overlay's "
+                  f"{single_pg:.4f}")
+            out[leg.replace(" ", "_")] = {"mesh_T_G_percent": mesh_pg, "single_T_G_percent": single_pg,
+                                          "refine_s": mesh_s}
+        out["store"] = _geometry(svc.graph.store)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase14(held, dev, smi, main_launches, t_start):
+    """The capacity store on the card (module docstring, phase 14)."""
+    t_phase = time.perf_counter()
+    cut = t_phase - t_start > PHASE14_CUT_AT_S
+    n_slices = PHASE14_GIS_SLICES[1] if cut else PHASE14_GIS_SLICES[0]
+    out = {"phase": 14, "card": smi, "budget_s": PHASE14_BUDGET_S, "cut": cut}
+    fg0 = main_launches.get("frontier_gather", 0)
+    for part, fn in (("boundaries", lambda: _phase14_boundaries(held, dev, main_launches)),
+                     ("compact_crash", lambda: _phase14_compact_crash(held, dev, main_launches)),
+                     ("gis_growth", lambda: _phase14_gis(held, dev, main_launches, n_slices)),
+                     ("mesh", lambda: _phase14_mesh(held, dev, smi))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["frontier_gather_launches"] = main_launches.get("frontier_gather", 0) - fg0
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    gis = out["gis_growth"]
+    say(f"phase 14: gis adoption per slice " + ", ".join(f"{t:.3f}" for t in gis["adopt_s"])
+        + " s against a rebuild " + ", ".join(f"{t:.3f}" for t in gis["rebuild_s"])
+        + " s (the grown graph's symmetrization apart: "
+        + ", ".join(f"{t:.3f}" for t in gis["symmetrize_s"]) + f" s); frontier_gather {out['frontier_gather_launches']} launches; "
+        f"{out['phase_s']:.1f} s (budget {PHASE14_BUDGET_S:.0f} s"
+        + (", over" if out["phase_s"] > PHASE14_BUDGET_S else "") + (", cut" if cut else "") + ")")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -2802,11 +3144,14 @@ def main() -> int:
     say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     phase13(held, dev, smi, main_launches)
     say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    phase14(held, dev, smi, main_launches, t_start)
+    say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
-        "replays of phase 12, the EP forward and the mesh online runs of phase 13): " + json.dumps(main_launches, sort_keys=True))
+        "replays of phase 12, the EP forward and the mesh online runs of phase 13, the replays and "
+        "runs of phase 14): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -1,11 +1,6 @@
 """DiDiC — Distributed Diffusive Clustering (paper §4.1.3), on a device.
 
-Twin of ``repro.core.didic`` for graphs without a growth store. The JAX
-package refines store-backed (grown) graphs with a capacity-overlay step so
-that its compiled closures never retrace; the port's eager step has nothing
-to retrace, so a grown graph is refined with the ordinary step, its
-products built afresh on the new graph object. One DiDiC iteration is
-a pair of coupled diffusion systems per partition ``c``; with the
+Twin of ``repro.core.didic``. One DiDiC iteration is a pair of coupled diffusion systems per partition ``c``; with the
 symmetrized edge list and the per-edge coefficient ``c_e = wt(e)·α(e)``
 (Metropolis weights ``α(e) = 1/(1 + max(D_u, D_v))``) every inner step is a
 sparse product ``A_c @ X`` on an ``N×k`` load matrix:
@@ -38,11 +33,29 @@ from a ``torch.Generator`` seeded from ``seed``; the step takes it as an
 argument, and :func:`didic_partition` / :func:`didic_refine` accept
 ``commit_masks`` so that tests can feed in the masks JAX's key schedule
 draws.
+
+**The capacity overlay.** A graph backed by a
+:class:`~repro_torch.graphs.structure.GraphStore` is refined, off the kernel
+route, by the JAX package's overlay step: the same algorithm on state with
+``n_cap + 1`` rows, of which the first ``n_nodes`` are live. Seeds, the
+rescale's mean, the balance fit's sizes and the commit are masked to the
+live rows, the commit mask has ``n_cap + 1`` entries, and dead rows hold
+exactly zero (their coefficient degree is 0 and no edge reaches them, so
+every product leaves them 0). The product is the segment route over the
+live, sender-sorted coefficient edges with ``n_cap + 1`` output rows: the
+padded edges of the JAX tables carry coefficient 0 and point at the dead
+sentinel row, so leaving them out changes no sum, and the reduction stays
+fixed-order (no float atomics, so a card run repeats itself bit for bit).
+The tables are cached on the store per graph and rebuilt when the lineage
+grows (:func:`_overlay_tables`). Like the JAX step, the overlay sums floats
+over padded rows, so it is close to, not bit-identical with, the storeless
+step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -171,30 +184,46 @@ def make_spmm(
 
 
 def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig,
-               allreduce: Optional[Callable] = None, n_rows: Optional[int] = None):
+               allreduce: Optional[Callable] = None, n_rows: Optional[int] = None,
+               live: Optional[torch.Tensor] = None, live_n: Optional[int] = None):
     """One DiDiC iteration; the commit mask is an argument.
 
     On a mesh (:mod:`repro_torch.core.didic_distributed`) each rank steps
     its own block of rows: ``allreduce`` sums a tensor over the ranks, for
     the rescale's mean and the balance fit's sizes, and ``n_rows`` is the
-    row count of all the blocks."""
+    row count of all the blocks. ``live`` (a bool mask of the rows this
+    call steps) and ``live_n`` (the live rows over every rank) make it the
+    capacity-overlay step (module docstring)."""
     k = config.k
     safe_deg = torch.clamp(degc, min=1e-6)[:, None]
     degc = degc[:, None]
     classes = torch.arange(k, dtype=torch.int32, device=degc.device)
+    livef = None if live is None else live.to(torch.float32)[:, None]
 
     def step(w, l, parts, beta, commit, smooth_steps: int):
-        n = w.shape[0] if n_rows is None else n_rows
+        if live is not None:
+            n = live_n
+        else:
+            n = w.shape[0] if n_rows is None else n_rows
         onehot = (parts[:, None] == classes[None, :]).to(w.dtype)
-        # Fresh per-member secondary seed with an ε-floor (JAX fix #1).
+        if livef is not None:
+            onehot = onehot * livef
+        # Fresh per-member secondary seed with an ε-floor (JAX fix #1); on
+        # the overlay, exactly zero on dead rows.
         l = _INIT_LOAD * onehot + 0.01
+        if livef is not None:
+            l = l * livef
         benefit = 1.0 + (_BENEFIT - 1.0) * onehot  # 10 for members, else 1
         for _ in range(config.primary_steps):
             for _ in range(config.secondary_steps):
                 lb = l / benefit
                 l = l - degc * lb + spmm(lb)
             w = w + l - degc * w + spmm(w)
-        mean = w.mean() if allreduce is None else allreduce(w.sum()) / (n * k)
+        if allreduce is None and live is None:
+            mean = w.mean()
+        else:
+            total = w.sum() if allreduce is None else allreduce(w.sum())
+            mean = total / (n * k)  # dead rows sum to 0
         w = w / torch.clamp(mean, min=1e-6)  # column-common rescale
         # Annealed lazy-random-walk assignment smoothing (fixes #3, #4).
         smoothed = w
@@ -204,16 +233,92 @@ def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig,
         tgt = n / k
         for _ in range(config.balance_iters):
             p = torch.argmax(smoothed * beta[None, :], dim=1)
-            sizes = torch.bincount(p, minlength=k)
+            if live is None:
+                sizes = torch.bincount(p, minlength=k)
+            else:
+                sizes = torch.bincount(torch.where(live, p, k), minlength=k + 1)[:k]
             sizes = (sizes if allreduce is None else allreduce(sizes)).to(w.dtype)
             beta = torch.clamp(
                 beta * (tgt / torch.clamp(sizes, min=1.0)) ** config.balance_exp, 1e-3, 1e3
             )
         new_parts = torch.argmax(smoothed * beta[None, :], dim=1).to(torch.int32)
+        if live is not None:
+            commit = commit & live
         parts = torch.where(commit, new_parts, parts)
         return w, l, parts, beta
 
     return step
+
+
+def _overlay_tables(graph: Graph, device) -> Tuple[SegmentSpmm, torch.Tensor]:
+    """The capacity-padded coefficient product and degree of a store-backed
+    graph: ``A_c @ X`` over ``n_cap + 1`` rows (the live edges only; see the
+    module docstring) and ``degc`` zero past the live rows."""
+    store = graph.store
+    s, r, ce, degc = _edge_coefficients(graph)
+    n_rows = store.n_cap + 1
+    if s.shape[0] > 2 * store.e_cap:  # symmetrization: ≤ 2·e_cap edges
+        raise ValueError(
+            f"graph has {s.shape[0]} symmetrized edges but the store caps "
+            f"the overlay at {2 * store.e_cap}"
+        )
+    degc_pad = torch.zeros(n_rows, dtype=torch.float32, device=device)
+    degc_pad[: graph.n_nodes] = torch.from_numpy(degc)
+    return SegmentSpmm(s, r, ce, n_rows, device), degc_pad
+
+
+def _overlay_tables_for(graph: Graph, device) -> Tuple[SegmentSpmm, torch.Tensor]:
+    """:func:`_overlay_tables`, cached on the store per device. The entry is
+    kept for the graph it was built from (held weakly) and its extents, and
+    dropped before its successor is built, so a lineage holds one set of
+    tables at a time. (Keying on the extents alone, as the JAX package does,
+    could serve one lineage's tables to another grown from the same base to
+    the same size.)"""
+    store = graph.store
+    key = ("didic_tables", str(device))
+    extents = (graph.n_nodes, graph.n_edges)
+    ent = store.caches.get(key)
+    if ent is not None and ent[0]() is graph and ent[1] == extents:
+        return ent[2]
+    store.caches.pop(key, None)
+    ent = (weakref.ref(graph), extents, _overlay_tables(graph, device))
+    store.caches[key] = ent
+    return ent[2]
+
+
+def _overlay_refine(
+    graph: Graph,
+    parts: np.ndarray,
+    config: DidicConfig,
+    state: Optional[DidicState],
+    iterations: int,
+    seed: int,
+    device,
+    commit_masks: Optional[Sequence[np.ndarray]] = None,
+) -> Tuple[np.ndarray, DidicState]:
+    """Refine a store-backed graph through the capacity-overlay step. The
+    state has ``n_cap + 1`` rows; one of another shape (cold, or carried
+    across a compaction) is reseeded from ``parts``."""
+    store = graph.store
+    spmm, degc = _overlay_tables_for(graph, device)
+    n, n_rows = graph.n_nodes, store.n_cap + 1
+    parts_pad = np.zeros(n_rows, dtype=np.int32)
+    parts_pad[:n] = np.asarray(parts, dtype=np.int32)
+    parts_t = torch.as_tensor(parts_pad, device=device)
+    live = torch.arange(n_rows, device=device) < n
+    if state is None or state.w.shape[0] != n_rows:
+        classes = torch.arange(config.k, dtype=torch.int32, device=device)
+        onehot = (parts_t[:, None] == classes[None, :]) & live[:, None]
+        load = _INIT_LOAD * onehot.to(torch.float32)
+        state = DidicState(w=load, l=load, parts=parts_t,
+                           beta=torch.ones((config.k,), dtype=torch.float32, device=device))
+    else:
+        state = DidicState(w=state.w, l=state.l, parts=parts_t, beta=state.beta)
+    state = _run_iterations(
+        state, spmm, degc, config, iterations, seed, start_wide=True,
+        commit_masks=commit_masks, live=live, live_n=n,
+    )
+    return state.parts[:n].cpu().numpy(), state
 
 
 def _init_state(k: int, parts0: torch.Tensor) -> DidicState:
@@ -244,8 +349,10 @@ def _run_iterations(
     seed: int,
     start_wide: bool = False,
     commit_masks: Optional[Sequence[np.ndarray]] = None,
+    live: Optional[torch.Tensor] = None,
+    live_n: Optional[int] = None,
 ) -> DidicState:
-    step = _make_step(spmm, degc, config)
+    step = _make_step(spmm, degc, config, live=live, live_n=live_n)
     schedule = _smooth_schedule(config, iterations, start_wide)
     dev = state.w.device
     gen = torch.Generator(device=dev)
@@ -309,10 +416,18 @@ def didic_refine(
     incoming assignment: diffusion runs unchanged and the pins are restored
     on the host in the returned map. The next refine seeds the carried
     state's assignment from its input map, so the pins carry over.
+
+    A store-backed graph off the kernel route runs the capacity-overlay
+    step (module docstring; ``commit_masks`` then have ``n_cap + 1``
+    entries); the kernel route keeps the per-graph block-ELL packing.
     """
     dev = resolve_device(device)
     config = dataclasses.replace(config, commit_prob=1.0)
     pinned, before = _capture_pins(parts, pinned)
+    if graph.store is not None and not config.use_kernel:
+        out, state = _overlay_refine(graph, parts, config, state, iterations, seed, dev,
+                                     commit_masks=commit_masks)
+        return _restore_pins(out, pinned, before), state
     parts_t = torch.as_tensor(np.array(parts, dtype=np.int32), device=dev)
     spmm, degc = make_spmm(graph, config, dev)
     if state is None:

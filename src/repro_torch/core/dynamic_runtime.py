@@ -11,8 +11,11 @@ that cycle on a :class:`~repro_torch.core.framework.PartitionedGraphService`:
 the insert partitioner's draw (host numpy), the Migration-Scheduler's
 maintenance (DiDiC on the card: the segment route, or ``bell_matmul`` with
 ``DidicConfig.use_kernel``) and the batched replay (GIS through
-``frontier_gather``). With ``insert_rate`` > 0 the graph grows every slice;
-each grown graph gets its own engines.
+``frontier_gather``). With ``insert_rate`` > 0 the graph grows every slice:
+the first growth slice of a storeless graph calls the service's
+``prepare_growth``, which attaches a delta-overlay store and builds its
+engine and DiDiC tables, and every grown graph adopts them
+(:mod:`repro_torch.graphs.structure`).
 
 The runtime carries the fault layer's hooks: :meth:`begin` and
 :meth:`run_slice` tell an attached fault plan which slice runs, and
@@ -30,8 +33,10 @@ loops of :mod:`repro_torch.core.dynamism`), and maintenance is chosen by
 the service's ``maintenance``: ``"shared"`` keeps the single-device DiDiC,
 so a mesh run equals the meshless run on every counter of every slice;
 ``"sharded"`` runs the halo-exchange DiDiC, the same algorithm summed in
-another float32 order, held to quality instead. The JAX package's
-delta-overlay store (``prepare_growth``) waits for the capacity store.
+another float32 order, held to quality instead. On a store the JAX
+package's dynamism scan also pins its padded unit count to the capacity's
+slice (``pad_units``); that only keeps a compiled scan shape and changes no
+target, so the port's draws pass no ``pad_units``.
 
 The device scan carries the JAX package's unrolled blocks
 (:func:`_unroll_blocks`, whose previous-occurrence rows let a unit read its
@@ -283,6 +288,10 @@ class DynamicExperimentRuntime:
         svc = self.service
         if svc.fault_plan is not None:
             svc.fault_plan.begin_slice(i)
+        if insert_rate > 0.0 and svc.graph.store is None:
+            # First growth slice on a storeless graph: attach the store and
+            # build what the growth slices adopt.
+            svc.prepare_growth()
         if log is None:
             log = self.insert.allocate(
                 svc.parts, amount, vertex_traffic=self._result.per_vertex,

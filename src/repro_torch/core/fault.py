@@ -28,17 +28,20 @@ the slice index. A crashed-and-recovered dynamic run is therefore
 bit-exact against the uninterrupted one on all four traffic counters.
 
 **Fault-site registry.** :data:`FAULT_SITES` names every site the port
-fires; ``fire``, ``crash`` and the schedule builders raise ``ValueError``
-on any other, so a typo cannot silently never fire. It is the JAX
-package's registry without the sites in :data:`DROPPED_SITES`, which names
-each site the port does not fire and why, so that a fault-site rule can
-tell a dropped site from a missing one.
+fires, text for text the JAX package's registry; ``fire``, ``crash`` and
+the schedule builders raise ``ValueError`` on any other, so a typo cannot
+silently never fire.
 
 ====================== ====================================================
 ``apply:pre_validate`` after the journal intent is written, before any
                        validation ran (entry pending → rolled back)
 ``apply:pre_commit``   after validation, before any state mutates (entry
                        pending → rolled back; service state unchanged)
+``apply:compact``      a structural log is about to overflow the
+                       delta-overlay store — fired before the compaction
+                       (entry pending → rolled back; the snapshot carries
+                       the store geometry, so the re-run compacts
+                       identically)
 ``apply:post_commit``  after every mutation and the journal commit mark
                        (entry committed → re-applied from the journal)
 ``maintain``           start of a maintenance attempt (timeouts fire here;
@@ -59,7 +62,6 @@ from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Set
 
 __all__ = [
     "FAULT_SITES",
-    "DROPPED_SITES",
     "SimulatedFault",
     "SimulatedCrash",
     "ShardFailure",
@@ -85,6 +87,12 @@ FAULT_SITES: Dict[str, str] = {
         "apply_dynamism, after validation and before any state mutates — "
         "entry pending, rolled back; service state unchanged"
     ),
+    "apply:compact": (
+        "apply_dynamism, when a structural log is about to overflow the "
+        "delta-overlay store — before the amortized compaction rebuild; "
+        "entry pending, rolled back, and the restored run re-compacts "
+        "identically because the snapshot carries the store geometry"
+    ),
     "apply:post_commit": (
         "apply_dynamism, after every mutation and the journal commit mark "
         "— entry committed, recovery re-applies it from the journal"
@@ -103,16 +111,6 @@ FAULT_SITES: Dict[str, str] = {
         "online admission loop, after the batch replay and before served "
         "counters fold into the server aggregates — the replay is pure, "
         "so a retried tick re-serves the identical batch and folds once"
-    ),
-}
-
-#: Sites of the JAX package's registry that the port does not fire, and why.
-DROPPED_SITES: Dict[str, str] = {
-    "apply:compact": (
-        "fires before the delta-overlay GraphStore's compaction rebuild; the "
-        "port has no store (a grown graph is a new object with fresh "
-        "engines), so nothing compacts — waits for the capacity store "
-        "(ROADMAP A10, the store item)"
     ),
 }
 

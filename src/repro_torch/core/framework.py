@@ -32,8 +32,15 @@ timeouts at named sites, ``retry_policy`` bounds the maintenance retries,
 and a :class:`~repro_torch.core.recovery.DynamismJournal` makes
 :meth:`PartitionedGraphService.apply_dynamism` a write-ahead, exactly-once
 operation per log fingerprint. With none attached the service computes
-exactly what it did without them. The ``apply:compact`` site waits for
-the delta-overlay store.
+exactly what it did without them.
+
+**Growth.** A structural log attaches a delta-overlay
+:class:`~repro_torch.graphs.structure.GraphStore` to the service's graph
+(``ensure_store``, at the default headroom) before it grows it, so every
+grown graph of the lineage shares the store's engines, replayers and DiDiC
+tables by adoption; a log that would overflow the store fires
+``apply:compact`` before the compaction. :meth:`PartitionedGraphService.prepare_growth`
+attaches the store and builds those once, ahead of the first growth slice.
 
 **Engine dispatch.** Built with a ``mesh`` (a
 :class:`~repro_torch.launch.mesh.ReplayMesh` over a ``torch.distributed``
@@ -60,8 +67,15 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.core import metrics
-from repro_torch.core.didic import DidicConfig, DidicState, didic_partition, didic_refine
+from repro_torch.core.didic import (
+    DidicConfig,
+    DidicState,
+    _overlay_tables_for,
+    didic_partition,
+    didic_refine,
+)
 from repro_torch.core.didic_distributed import (
+    _capacity_mesh_program,
     didic_partition_distributed,
     didic_refine_distributed,
 )
@@ -69,7 +83,8 @@ from repro_torch.core.dynamism import DynamismLog, apply_dynamism, generate_dyna
 from repro_torch.core.fault import MaintenanceTimeout, RetryPolicy, SimulatedCrash
 from repro_torch.core.partitioners import select_hot_vertices
 from repro_torch.core.placement import Placement
-from repro_torch.core.traffic import OpLog, TrafficResult, execute_ops, generate_ops
+from repro_torch.core.traffic import OpLog, TrafficResult, execute_ops, generate_ops, pattern_for
+from repro_torch.core.traffic_batched import get_engine
 from repro_torch.core.traffic_sharded import migrate_resident_states, replay_sharded
 from repro_torch.distributed.counters import data_shard_count
 from repro_torch.graphs.structure import Graph
@@ -702,8 +717,10 @@ class PartitionedGraphService:
         Atomic: every check (shapes and bounds in the graph rebuild, insert
         admissibility) runs before any state changes, so a rejected log
         leaves ``parts``, ``graph`` and the logger as they were. A
-        structural log replaces the graph by a new object (its engines and
-        DiDiC products are built afresh on it); growth drops the carried
+        structural log replaces the graph by a new object on the same
+        delta-overlay store (attached here if the graph had none), whose
+        engines and DiDiC tables adopt it; one that would overflow the store
+        fires ``apply:compact`` first and compacts. Growth drops the carried
         diffusion state, which is per-vertex, so the next maintenance pass
         seeds from the grown map.
 
@@ -756,19 +773,27 @@ class PartitionedGraphService:
             self.placement.invalidate(log.vertices)
             self.logger.observe_structure(self.graph, self.parts)
             return
+        old_graph = self.graph
         # -- validate (no mutation yet) --------------------------------------
+        # Growth runs on the delta-overlay store: attach one on the first
+        # structural log (attaching changes no graph content), and fire the
+        # compaction site when this log overflows it.
+        store = old_graph.ensure_store()
+        n_new_edges = 0 if log.insert_senders is None else int(np.asarray(log.insert_senders).shape[0])
+        if plan is not None and store.would_overflow(old_graph, log.n_new_vertices, n_new_edges):
+            plan.fire("apply:compact")
         if log.n_new_vertices:
-            if log.base_nodes is not None and log.base_nodes != self.graph.n_nodes:
+            if log.base_nodes is not None and log.base_nodes != old_graph.n_nodes:
                 raise ValueError(
                     f"vertex-growth log grows a base of {log.base_nodes} "
-                    f"vertices but the service graph has {self.graph.n_nodes}"
+                    f"vertices but the service graph has {old_graph.n_nodes}"
                 )
-            new_graph = self.graph.with_vertices(
+            new_graph = old_graph.with_vertices(
                 log.n_new_vertices, log.insert_attrs,
                 log.insert_senders, log.insert_receivers, log.insert_weights,
             )
         else:
-            new_graph = self.graph.with_edges(
+            new_graph = old_graph.with_edges(
                 log.insert_senders, log.insert_receivers, log.insert_weights
             )
         self._check_insert_admissible(log)
@@ -776,7 +801,6 @@ class PartitionedGraphService:
         if plan is not None:
             plan.fire("apply:pre_commit")
         # -- commit (nothing below may raise) --------------------------------
-        old_graph = self.graph
         self.parts = new_parts
         self.graph = new_graph
         self.placement.invalidate(
@@ -789,6 +813,23 @@ class PartitionedGraphService:
             for ops in self._replayed_logs.values():
                 migrate_resident_states(ops, old_graph, self.graph, dirty)
         self.logger.observe_structure(self.graph, self.parts)
+
+    def prepare_growth(self) -> None:
+        """Arm the service for vertex growth: attach a
+        :class:`~repro_torch.graphs.structure.GraphStore` at the default
+        headroom and build, once, what every growth slice then adopts: the
+        replay engine of the graph's pattern on the service's device, and
+        the overlay DiDiC tables (or, with sharded maintenance, the capacity
+        mesh program). The JAX package runs a throwaway refine here to trace
+        its closures; the port builds the same objects without running one.
+        Idempotent, and cheap after the first call."""
+        graph = self.graph
+        graph.ensure_store()
+        get_engine(graph, pattern_for(graph), device=self.device)
+        if self.runtime.mesh is not None:
+            _capacity_mesh_program(graph, self.runtime.mesh, self.runtime.data_axes)
+        elif not self.runtime.config.use_kernel:
+            _overlay_tables_for(graph, self.device)
 
     def _check_insert_admissible(self, log: DynamismLog) -> None:
         """Refuse edge inserts lighter than their straight-line length on a

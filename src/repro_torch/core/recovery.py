@@ -14,8 +14,11 @@ of the service state, under the JAX package's keys:
 * the partition map and the graph's **delta** over a pinned base graph
   (appended attr rows and edge triples; growth is pure concatenation, so
   one ``with_vertices``/``with_edges`` call rebuilds the grown graph bit
-  for bit). ``meta["store"]`` is always ``None``: the port has no
-  delta-overlay store;
+  for bit), and the geometry of its delta-overlay store under
+  ``meta["store"]`` (capacities, base extents, ``compactions``,
+  ``headroom``; ``None`` without a store), which :meth:`ServiceSnapshot.restore_into`
+  forces on the rebuilt graph, since the capacity shapes the overlay DiDiC's
+  sums;
 * DiDiC's carried state (``w``/``l``/``parts``/``beta``, copied off the
   device), the logger's infos, health counters and per-vertex traffic, the
   placement (hot table, ``replica_epoch``), the Migration-Scheduler's
@@ -24,9 +27,10 @@ of the service state, under the JAX package's keys:
 * the runtime's loop state: baseline and latest traffic, the per-slice
   records, the next slice to run.
 
-Engines, layouts and DiDiC products cached on the graph objects are not
-captured: they are functions of the graph, built afresh on the restored
-graph's first replay and maintenance pass. Serialization is ``npz`` with
+Engines, layouts and DiDiC products are not captured: they are functions
+of the graph, built afresh (or, cached on a store that survived with the
+base graph, adopted) on the restored graph's first replay and maintenance
+pass. Serialization is ``npz`` with
 ``sort_keys`` JSON meta (:meth:`ServiceSnapshot.to_bytes`); a sha1 over
 the canonical payload is checked on load and before every restore, so a
 corrupt snapshot fails loudly (:class:`SnapshotIntegrityError`).
@@ -74,7 +78,7 @@ from repro_torch.core.fault import FaultPlan, RetryPolicy, SimulatedCrash
 from repro_torch.core.framework import InstanceInfo
 from repro_torch.core.placement import Placement
 from repro_torch.core.traffic import TrafficResult
-from repro_torch.graphs.structure import Graph
+from repro_torch.graphs.structure import Graph, GraphStore
 
 __all__ = [
     "SNAPSHOT_VERSION",
@@ -216,7 +220,19 @@ class ServiceSnapshot:
             "base_nodes": int(base_graph.n_nodes),
             "base_edges": int(base_graph.n_edges),
             "base_fingerprint": graph_fingerprint(base_graph),
-            "store": None,
+            # The delta-overlay geometry: the capacity shapes every overlay
+            # buffer and with it the overlay DiDiC's sums, so a restored run
+            # must see the pre-crash geometry, not what a one-shot rebuild
+            # would derive; the headroom, so that a later compaction derives
+            # capacity as the pre-crash lineage would.
+            "store": None if graph.store is None else {
+                "n_cap": int(graph.store.n_cap),
+                "e_cap": int(graph.store.e_cap),
+                "base_nodes": int(graph.store.base_nodes),
+                "base_edges": int(graph.store.base_edges),
+                "compactions": int(graph.store.compactions),
+                "headroom": float(graph.store.headroom),
+            },
             "has_didic": svc.runtime.state is not None,
             "has_baseline": runtime._baseline is not None,
             "has_result": runtime._result is not None,
@@ -313,12 +329,30 @@ class ServiceSnapshot:
     def restore_into(self, runtime, base_graph: Graph) -> None:
         """Load this snapshot into a (typically fresh) runtime and service.
         The DiDiC state goes back as tensors on ``service.device``; the
-        engines and DiDiC products are rebuilt on first use."""
+        engines and DiDiC products are built (or adopted) on first use. The
+        rebuilt graph gets the snapshot's store geometry: a one-shot rebuild
+        from the base can carry or compact at other extents than the
+        incremental run did."""
         self.verify()
         svc = runtime.service
         if svc.k != int(self.meta["k"]):
             raise SnapshotIntegrityError(f"snapshot k={self.meta['k']} vs service k={svc.k}")
         svc.graph = self.rebuild_graph(base_graph)
+        sm = self.meta.get("store")
+        if sm is not None:
+            st = svc.graph.store
+            if st is None or st.n_cap != int(sm["n_cap"]) or st.e_cap != int(sm["e_cap"]):
+                svc.graph.store = GraphStore(
+                    n_cap=int(sm["n_cap"]), e_cap=int(sm["e_cap"]),
+                    base_nodes=int(sm["base_nodes"]), base_edges=int(sm["base_edges"]),
+                    compactions=int(sm["compactions"]), headroom=sm.get("headroom"),
+                )
+            else:
+                st.base_nodes = int(sm["base_nodes"])
+                st.base_edges = int(sm["base_edges"])
+                st.compactions = int(sm["compactions"])
+                if sm.get("headroom") is not None:
+                    st.headroom = float(sm["headroom"])
         pm = self.meta["placement"]
         svc.placement = Placement(
             owner=self.arrays["parts"].copy(), capacity=int(pm["capacity"]),
@@ -597,9 +631,13 @@ def run_with_recovery(
             crashed = True
         if crashed:
             # Outside the handler, so no traceback holds the dead runtime's
-            # frames: dropping it frees the crashed "process's" memory.
+            # frames: dropping it frees the crashed "process's" memory. The
+            # logs it served drop their resident replay states too (their
+            # replayers may live on, in a store the base graph keeps).
             t0 = time.perf_counter()
             stats.journal_rolled_back += journal.rollback_pending()
+            for served in runtime.service._replayed_logs.values():
+                served.__dict__.pop("_resident_replay", None)
             runtime = None
             gc.collect()
             runtime = fresh_runtime()

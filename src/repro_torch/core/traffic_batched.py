@@ -1,13 +1,18 @@
 """Batched execution of evaluation logs on a device (PyTorch).
 
-Twin of ``repro.core.traffic_batched`` for graphs without a growth store.
-A graph grown by dynamism is a new :class:`Graph` and gets engines of its
-own from :func:`get_engine` (its layouts, and for GIS its Hilbert row
-schedule, built afresh); the JAX package instead adopts the grown graph into
-capacity-padded engines so that its compiled closures never retrace. The
-engines hold no reference to their graph, and a log keeps its per-engine
-compilations by weak reference, so an engine, and its device memory, goes
-when its graph goes.
+Twin of ``repro.core.traffic_batched``. A storeless graph gets engines of
+its own from :func:`get_engine`, cached on the graph object. A graph backed
+by a delta-overlay :class:`~repro_torch.graphs.structure.GraphStore` gets
+one engine per parameters for the whole lineage, cached on the store: its
+device buffers are sized to the store's capacity (``n_cap + 1`` rows, the
+last a dead sentinel row; ``e_cap`` edge slots, the dead ones pointing at
+the sentinel), and :meth:`BatchedTrafficEngine.adopt` writes each grown
+graph into those buffers instead of building a new engine, so growth within
+capacity allocates nothing new and the engine object stays the same. The
+products read only the live prefix of each buffer (a view), so the dead
+tail costs no work; it is inert all the same. The engines hold their graph
+weakly, and a log keeps its per-engine compilations by weak reference, so a
+storeless engine, and its device memory, goes when its graph goes.
 
 The log is packed into device tensors once and **all operations advance
 together**; the four counters come out equal, bit for bit, to the scalar
@@ -260,11 +265,51 @@ class BatchedTrafficEngine:
         else:
             raise ValueError(f"unknown pattern {pattern!r}")
 
-        self.n_nodes = graph.n_nodes
-        if pattern == "filesystem":
+        # Delta-overlay capacity (see the module docstring); a storeless
+        # graph keeps its exact shapes.
+        store = graph.store
+        self.store = store
+        self._n_rows = (store.n_cap + 1) if store is not None else graph.n_nodes
+        self._e_cap = store.e_cap if store is not None else None
+        self._struct_version = 0
+        self._needs_rebuild = False
+        self._graph = None
+
+        if self.kind == "bfs":
+            if pattern == "twitter":
+                self.max_levels = 2
+            else:
+                # A store reserves one slack level: filesystem growth hangs
+                # files under existing folders, so depths stay within the
+                # deepest folder's + 1, and the extra level (zero histogram
+                # rows, saturated prefixes) changes no result.
+                self.max_levels = int(graph.node_attrs["depth"].max()) + (
+                    3 if store is not None else 2
+                )
+        else:
+            self.chunk = chunk or 128
+            self.delta_scale = delta_scale
+            self.nbr_cap = None  # frozen at the first load below
+        self._load_structure(graph)
+        if self.kind == "sssp":
+            self._device_h_ok = self._check_device_h()
+
+    @property
+    def graph(self) -> Optional[Graph]:
+        """The graph this engine holds (weakly): its latest adopted one."""
+        return self._graph()
+
+    def _load_structure(self, graph: Graph) -> None:
+        """(Re)load the host truth and the device buffers from ``graph``: at
+        construction, and on :meth:`adopt` after each growth step. With a
+        store, the capacity-sized buffers are allocated at the first call
+        and written in place (``copy_``) at every later one."""
+        self._graph = weakref.ref(graph)
+        self.n_nodes = n = graph.n_nodes
+        if self.pattern == "filesystem":
             s, r = _t._filtered_children_csr_edges(graph)
             self.w = None
-        elif pattern == "twitter":
+        elif self.pattern == "twitter":
             s, r = graph.senders, graph.receivers
             self.w = None
         else:
@@ -272,42 +317,90 @@ class BatchedTrafficEngine:
             self.w = np.asarray(w, dtype=np.float32)
         self.s = np.asarray(s, dtype=np.int64)
         self.r = np.asarray(r, dtype=np.int64)
-        self.deg = np.bincount(self.s, minlength=self.n_nodes).astype(np.int32)
-        dev = self.device
+        self.deg = np.bincount(self.s, minlength=n).astype(np.int32)
 
         if self.kind == "bfs":
-            if pattern == "twitter":
-                self.max_levels = 2
-            else:
+            if self.pattern == "filesystem":
                 self._depth = graph.node_attrs["depth"].astype(np.int64)
                 self._parent = graph.node_attrs["parent"].astype(np.int64)
-                self.max_levels = int(self._depth.max()) + 2
-            self._s_t = torch.as_tensor(self.s, device=dev)
-            self._r_t = torch.as_tensor(self.r, device=dev)
-            self._deg_t = torch.as_tensor(self.deg, dtype=torch.int64, device=dev)
+            if self._e_cap is None:
+                self._s_t = self._tensor(self.s)
+                self._r_t = self._tensor(self.r)
+                self._deg_t = self._tensor(self.deg, torch.int64)
+                return
+            n_e = self.s.shape[0]
+            if n_e > self._e_cap:
+                raise ValueError("BFS edge set exceeds store edge capacity")
+            dead = self._n_rows - 1
+            if not hasattr(self, "_s_buf"):
+                self._s_buf = torch.full((self._e_cap,), dead, dtype=torch.int64, device=self.device)
+                self._r_buf = torch.full((self._e_cap,), dead, dtype=torch.int64, device=self.device)
+                self._deg_buf = torch.zeros(self._n_rows, dtype=torch.int64, device=self.device)
+                self._live = (0, 0)
+            # The whole live prefix is written again. A smaller graph than the
+            # last (a restart from the base, a restore) kills the rest.
+            self._s_buf[:n_e].copy_(torch.from_numpy(self.s))
+            self._r_buf[:n_e].copy_(torch.from_numpy(self.r))
+            self._deg_buf[:n].copy_(torch.from_numpy(self.deg.astype(np.int64)))
+            self._s_buf[n_e:self._live[1]] = dead
+            self._r_buf[n_e:self._live[1]] = dead
+            self._deg_buf[n:self._live[0]] = 0
+            self._live = (n, n_e)
+            self._s_t, self._r_t = self._s_buf[:n_e], self._r_buf[:n_e]
+            self._deg_t = self._deg_buf[:n]
+            return
+
+        self._lon = np.asarray(graph.node_attrs["lon"], dtype=np.float32)
+        self._lat = np.asarray(graph.node_attrs["lat"], dtype=np.float32)
+        rank = _hilbert_rank(self._lon, self._lat)
+        if self.store is None:
+            self._lon_t = self._tensor(self._lon)
+            self._lat_t = self._tensor(self._lat)
+            self._rank_t = self._tensor(rank)
         else:
-            self.chunk = chunk or 128
-            self.delta_scale = delta_scale
-            self._lon = np.asarray(graph.node_attrs["lon"], dtype=np.float32)
-            self._lat = np.asarray(graph.node_attrs["lat"], dtype=np.float32)
-            self._lon_t = torch.as_tensor(self._lon, device=dev)
-            self._lat_t = torch.as_tensor(self._lat, device=dev)
-            self.mean_w = float(self.w.mean()) if self.w.size else 1.0
-            self.delta = (
-                np.float32(np.inf)
-                if delta_scale is None
-                else np.float32(max(self.mean_w * delta_scale, 1e-6))
-            )
-            # The cap only splits edges between the padded gather and the
-            # exact spill tail, so results never depend on it.
+            if not hasattr(self, "_lon_buf"):
+                cap = self._n_rows
+                self._lon_buf = torch.zeros(cap, dtype=torch.float32, device=self.device)
+                self._lat_buf = torch.zeros(cap, dtype=torch.float32, device=self.device)
+                self._rank_buf = torch.zeros(cap, dtype=torch.int64, device=self.device)
+            self._lon_buf[:n].copy_(torch.from_numpy(self._lon))
+            self._lat_buf[:n].copy_(torch.from_numpy(self._lat))
+            self._rank_buf[:n].copy_(torch.from_numpy(rank))
+            self._lon_t, self._lat_t = self._lon_buf[:n], self._lat_buf[:n]
+            self._rank_t = self._rank_buf[:n]
+        self.mean_w = float(self.w.mean()) if self.w.size else 1.0
+        self.delta = (
+            np.float32(np.inf)
+            if self.delta_scale is None
+            else np.float32(max(self.mean_w * self.delta_scale, 1e-6))
+        )
+        if self.nbr_cap is None:
+            # Frozen: the cap only splits edges between the padded gather and
+            # the exact spill tail, so results never depend on it.
             pos_deg = self.deg[self.deg > 0]
             self.nbr_cap = max(4, int(np.percentile(pos_deg, 90)) if pos_deg.size else 4)
-            self._glob2loc = np.full(self.n_nodes, -1, dtype=np.int64)
-            self._rank_t = torch.as_tensor(_hilbert_rank(self._lon, self._lat), device=dev)
-            self._full_layout = None
-            self._full_order = None
-            self._full_window = None
-            self._device_h_ok = self._check_device_h()
+        self._glob2loc = np.full(n, -1, dtype=np.int64)
+        # The whole-graph layout and its row schedule follow the extents:
+        # rebuilt on their next use.
+        self._full_layout = None
+        self._full_order = None
+        self._full_window = None
+
+    def adopt(self, graph: Graph) -> None:
+        """Adopt a grown graph of this engine's store lineage in place: the
+        host arrays are rebuilt from ``graph`` and written into the device
+        buffers this engine holds. Sets ``_needs_rebuild`` (read by
+        :func:`get_engine`) when the grown graph outgrows the engine's fixed
+        level count (off the growth contract)."""
+        if graph is self.graph:
+            return
+        if self.store is None or graph.store is not self.store:
+            raise ValueError("adopt requires a graph sharing this engine's store")
+        if self.kind == "bfs" and self.pattern == "filesystem":
+            if int(graph.node_attrs["depth"].max()) + 2 > self.max_levels:
+                self._needs_rebuild = True
+        self._struct_version += 1
+        self._load_structure(graph)
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -329,10 +422,12 @@ class BatchedTrafficEngine:
 
     def _compile_bfs_log(self, ops) -> Tuple[np.ndarray, np.ndarray]:
         """Per-op expansion levels + per-level start histograms (cached on
-        the log per engine, held weakly)."""
+        the log per engine, held weakly, and per structure version: an
+        adopted graph compiles again)."""
         cache = ops.__dict__.setdefault("_torch_bfs_compile_cache", weakref.WeakKeyDictionary())
-        if self in cache:
-            return cache[self]
+        hit = cache.get(self)
+        if hit is not None and hit[0] == self._struct_version:
+            return hit[1]
         t = self.max_levels
         n_ops = ops.n_ops
         starts = ops.starts.astype(np.int64)
@@ -354,7 +449,7 @@ class BatchedTrafficEngine:
         np.add.at(hist, (np.minimum(levels, t) - 1, starts), 1)
         c_stack = hist[::-1].cumsum(axis=0)[::-1].copy()[:t]
         out = (levels, c_stack)
-        cache[self] = out
+        cache[self] = (self._struct_version, out)
         return out
 
     def _run_bfs(self, ops, cross_deg: np.ndarray):
@@ -389,10 +484,11 @@ class BatchedTrafficEngine:
 
     def _compile_sssp_log(self, ops) -> np.ndarray:
         """Difficulty order: (coarse src cell, straight-line distance),
-        cached on the log per engine, held weakly."""
+        cached on the log per engine (held weakly) and structure version."""
         cache = ops.__dict__.setdefault("_torch_sssp_compile_cache", weakref.WeakKeyDictionary())
-        if self in cache:
-            return cache[self]
+        hit = cache.get(self)
+        if hit is not None and hit[0] == self._struct_version:
+            return hit[1]
         hd = np.hypot(
             self._lon[ops.starts].astype(np.float64) - self._lon[ops.ends],
             self._lat[ops.starts].astype(np.float64) - self._lat[ops.ends],
@@ -402,7 +498,7 @@ class BatchedTrafficEngine:
         cx = np.clip(((self._lon[ops.starts] - self._lon.min()) / lon_span * 8), 0, 7).astype(np.int64)
         cy = np.clip(((self._lat[ops.starts] - self._lat.min()) / lat_span * 8), 0, 7).astype(np.int64)
         order = np.lexsort((hd, cx * 8 + cy))
-        cache[self] = order
+        cache[self] = (self._struct_version, order)
         return order
 
     def _sssp_window(
@@ -750,11 +846,32 @@ def get_engine(
     delta_scale: Optional[float] = None,
     device=None,
 ) -> BatchedTrafficEngine:
-    """Engine cache with the graph's lifetime, keyed by engine parameters
-    (``max_expansions`` normalized first) and device. A grown graph is a
-    new object, so it gets new engines; the old graph's go with it."""
+    """Engine cache keyed by engine parameters (``max_expansions``
+    normalized first) and device.
+
+    A storeless graph's engines live on the graph object and go with it. A
+    store-backed graph's live on its :class:`GraphStore`, and the cached
+    engine adopts each grown graph of the lineage in place, so growth within
+    capacity is a cache hit; a compaction (a new store) builds anew.
+    """
     dev = resolve_device(device)
     key = (pattern, chunk, resolve_max_expansions(max_expansions), delta_scale, str(dev))
+    store = graph.store
+    if store is not None:
+        skey = ("engine",) + key
+        eng = store.caches.get(skey)
+        if eng is not None:
+            eng.adopt(graph)
+            if eng._needs_rebuild:
+                del store.caches[skey]
+                eng = None
+        if eng is None:
+            eng = BatchedTrafficEngine(
+                graph, pattern, chunk=chunk, max_expansions=max_expansions,
+                delta_scale=delta_scale, device=dev,
+            )
+            store.caches[skey] = eng
+        return eng
     cache = graph.__dict__.setdefault("_torch_traffic_engine_cache", {})
     if key not in cache:
         cache[key] = BatchedTrafficEngine(

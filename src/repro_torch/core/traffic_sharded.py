@@ -45,10 +45,15 @@ dynamism dirties the touched vertices; ops whose footprint meets them are
 solved again through the whole-graph layout on the next replay
 (:func:`migrate_resident_states` carries states onto a grown graph).
 
-The port has no growth store: a grown graph is a new object with
-replayers, engines and layouts of its own, and only the "old graph's own
-cache" branch of the JAX package's migration applies. Replayers and
-resident states hold their graph weakly, so they go with it.
+**On a growth store.** A storeless graph's replayers are cached on the
+graph object, and a grown graph gets replayers of its own. A graph backed by
+a :class:`~repro_torch.graphs.structure.GraphStore` shares one replayer per
+parameters with its whole lineage, cached on the store: its counters are
+sized to the store's row capacity, and :meth:`ShardedTrafficReplayer.adopt_graph`
+moves it, its engine (which adopts in place) and its resident states onto
+each grown graph. :func:`migrate_resident_states` handles the three places a
+replayer can live, as the JAX package does. Replayers and resident states
+hold their graph weakly.
 """
 
 from __future__ import annotations
@@ -207,7 +212,9 @@ class ShardedTrafficReplayer:
         self.engine = get_engine(graph, pattern, chunk=chunk, max_expansions=max_expansions,
                                  delta_scale=delta_scale, device=mesh.device)
         self.n_nodes = graph.n_nodes
-        self._row_cap = graph.n_nodes
+        # Rows of the mass scatter: the store's capacity on a store (real ids
+        # always fit; rows past the live ones stay 0 and are sliced off).
+        self._row_cap = graph.store.n_cap if graph.store is not None else graph.n_nodes
         self.last_redo_ops = 0  # ops solved on the whole graph by the last replay
         self._scatter_psum = make_scatter_psum(mesh, self._row_cap, self.data_axes)
         self._deg_table: Optional[torch.Tensor] = None
@@ -215,6 +222,17 @@ class ShardedTrafficReplayer:
     @property
     def graph(self) -> Optional[Graph]:
         return self._graph()
+
+    def adopt_graph(self, graph: Graph) -> None:
+        """Adopt a grown graph of the same store lineage in place: the engine
+        adopts it (its buffers written in place) and the graph-pure deg
+        prefix table is rebuilt on the next BFS replay."""
+        if graph is self.graph:
+            return
+        self.engine.adopt(graph)
+        self._graph = weakref.ref(graph)
+        self.n_nodes = graph.n_nodes
+        self._deg_table = None
 
     def _my_range(self, lo: int, hi: int) -> Tuple[int, int]:
         """This rank's contiguous share of ``[lo, hi)``."""
@@ -278,7 +296,7 @@ class ShardedTrafficReplayer:
 
         # The frontier mass is (graph, ops)-pure, so a resident state keeps
         # it across replays against an evolving partition map.
-        acc = CounterAccumulator(self._row_cap)
+        acc = CounterAccumulator(self.n_nodes)
         for wlo, whi in bfs_wave_ranges(edges):
             a, b = self._my_range(wlo, whi)
             acc.add(self._tm_wave(ops.starts[a:b].astype(np.int64), levels[a:b]))
@@ -537,11 +555,29 @@ def get_replayer(
     max_expansions: Optional[int] = None,
     delta_scale: Optional[float] = None,
 ) -> ShardedTrafficReplayer:
-    """Replayer cache with the graph's lifetime, keyed by (pattern, mesh,
-    axes, engine parameters), ``max_expansions`` normalized first so a
-    replay without an override lands on the batched path's engine."""
+    """Replayer cache keyed by (pattern, mesh, axes, engine parameters),
+    ``max_expansions`` normalized first so a replay without an override
+    lands on the batched path's engine. A storeless graph's replayers live
+    on the graph; a store-backed graph's on its store, where the cached
+    replayer adopts each grown graph of the lineage (a cache hit)."""
     key = (pattern, mesh, tuple(data_axes), chunk, resolve_max_expansions(max_expansions),
            delta_scale)
+    store = graph.store
+    if store is not None:
+        skey = ("replayer",) + key
+        rep = store.caches.get(skey)
+        if rep is not None:
+            rep.adopt_graph(graph)
+            if rep.engine._needs_rebuild:
+                del store.caches[skey]
+                rep = None
+        if rep is None:
+            rep = ShardedTrafficReplayer(
+                graph, pattern, mesh, data_axes=data_axes, chunk=chunk,
+                max_expansions=max_expansions, delta_scale=delta_scale,
+            )
+            store.caches[skey] = rep
+        return rep
     cache = graph.__dict__.setdefault("_torch_traffic_replayer_cache", {})
     if key not in cache:
         cache[key] = ShardedTrafficReplayer(
@@ -555,18 +591,32 @@ def migrate_resident_states(ops, old_graph: Graph, new_graph: Graph, dirty_verti
     """Carry a log's resident states across a structural update (edge
     inserts, appended vertices): every replayer of ``old_graph`` holding a
     state for ``ops`` hands it to the equivalent replayer of ``new_graph``
-    with ``dirty_vertices`` queued. Returns the number of states moved."""
+    with ``dirty_vertices`` queued. A replayer lives in one of three places:
+    the old graph's own cache (storeless growth, or a replay before the
+    store was attached), a store both graphs share (the replayer adopts the
+    new graph and keeps the state), or a store a compaction retired (the
+    state moves to the new store's replayer). Returns the number of states
+    moved."""
     states = ops.__dict__.get("_resident_replay")
     if not states:
         return 0
     moved = 0
-    for key, old_rep in list(old_graph.__dict__.get("_torch_traffic_replayer_cache", {}).items()):
+    candidates = list(old_graph.__dict__.get("_torch_traffic_replayer_cache", {}).items())
+    if old_graph.store is not None:
+        candidates += [(skey[1:], rep) for skey, rep in old_graph.store.caches.items()
+                       if isinstance(skey, tuple) and skey and skey[0] == "replayer"]
+    new_store = new_graph.store
+    for key, old_rep in candidates:
         state = states.pop(old_rep, None)
         if state is None:
             continue
-        pattern, mesh, data_axes, chunk, max_exp, delta_scale = key
-        new_rep = get_replayer(new_graph, pattern, mesh, data_axes=data_axes, chunk=chunk,
-                               max_expansions=max_exp, delta_scale=delta_scale)
+        if new_store is not None and old_rep.engine.store is new_store:
+            new_rep = old_rep
+            new_rep.adopt_graph(new_graph)
+        else:
+            pattern, mesh, data_axes, chunk, max_exp, delta_scale = key
+            new_rep = get_replayer(new_graph, pattern, mesh, data_axes=data_axes, chunk=chunk,
+                                   max_expansions=max_exp, delta_scale=delta_scale)
         new_rep.adopt_resident(ops, state, dirty_vertices)
         moved += 1
     return moved

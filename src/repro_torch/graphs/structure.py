@@ -1,10 +1,8 @@
-"""Graph containers and format conversions (host-side numpy).
+"""Graph containers, format conversions and the delta-overlay store
+(host-side numpy).
 
-Twin of ``repro.graphs.structure`` without the growth store
-(``GraphStore``): the host COO arrays are the whole graph, and a graph grown
-by :meth:`Graph.with_edges` or :meth:`Graph.with_vertices` is a new object
-whose engines and layouts are built afresh. The graph stays on the host in
-COO form, and derives:
+Twin of ``repro.graphs.structure``. The graph stays on the host in COO
+form, and derives:
 
 * CSR views for host-side traversal (the scalar oracle, the op-log
   generators),
@@ -18,11 +16,28 @@ Every array here is produced by the same numpy operations as the JAX
 package's twin, so the layouts are identical element for element (the
 parity tests hold them to that). Device tensors are made by the engines
 that consume these layouts.
+
+A growing graph carries a **base + delta overlay** (:class:`GraphStore`):
+when growth begins the store fixes a vertex capacity ``n_cap >= n_nodes``
+and an edge capacity ``e_cap >= n_edges``, and every device buffer built
+for a store-backed graph (the replay engines' tables, DiDiC's coefficient
+tables and state, the mesh DiDiC's halo tables) is sized to capacity with
+an inert tail: dead rows get zero mass, dead edges point at a sentinel row.
+A grown graph (a new :class:`Graph` from :meth:`Graph.with_vertices` or
+:meth:`Graph.with_edges`) shares its parent's store while it fits, and the
+engines, replayers and programs cached in ``store.caches`` *adopt* it: they
+write the grown graph into the buffers they already hold instead of being
+built again. When an insert would overflow the capacity the lineage
+**compacts**: a new store with fresh headroom over the grown extents,
+``compactions`` one higher, and everything cached is built once more on
+it. The host COO arrays stay the logical truth at every step; capacities
+only shape device buffers, so host results do not change.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import cached_property
 from typing import Dict, Optional, Tuple
 
@@ -30,12 +45,108 @@ import numpy as np
 
 __all__ = [
     "Graph",
+    "GraphStore",
+    "GROWTH_HEADROOM",
     "BlockEll",
     "PaddedNeighbors",
     "coalesce_edges",
     "symmetrize",
     "padded_neighbors",
 ]
+
+# Capacity multiplier applied when a store is allocated (at growth onset and
+# at every compaction): a delta sized to ``headroom - 1`` times the current
+# extents absorbs that much relative growth before the next compaction.
+# Default only: ``GraphStore(headroom=...)``, ``Graph.ensure_store(headroom=...)``
+# or the ``REPRO_GROWTH_HEADROOM`` environment variable override it (padded
+# capacity costs device memory linearly).
+GROWTH_HEADROOM = 2.0
+
+
+def _resolve_headroom(headroom: Optional[float] = None) -> float:
+    if headroom is None:
+        headroom = float(os.environ.get("REPRO_GROWTH_HEADROOM", GROWTH_HEADROOM))
+    headroom = float(headroom)
+    if headroom < 1.0:
+        raise ValueError(f"growth headroom must be >= 1.0, got {headroom}")
+    return headroom
+
+
+class GraphStore:
+    """Delta-overlay control block shared along one growing graph lineage.
+
+    The store pins the padded device capacity (``n_cap`` rows, ``e_cap``
+    edge slots) that every overlay buffer is sized to, records the base
+    extents the current delta sits on (``base_nodes``/``base_edges``; the
+    delta cursors are ``graph.n_nodes - base_nodes`` and ``graph.n_edges -
+    base_edges``) and counts ``compactions``. ``caches`` holds the engines,
+    replayers, DiDiC tables and mesh programs of the lineage, keyed by
+    their parameters, so that a grown graph (a new :class:`Graph`) reuses
+    them by adoption. The store holds no graph data: the host COO arrays of
+    each :class:`Graph` are the truth.
+    """
+
+    def __init__(
+        self,
+        n_cap: int,
+        e_cap: int,
+        base_nodes: int,
+        base_edges: int,
+        compactions: int = 0,
+        headroom: Optional[float] = None,
+    ) -> None:
+        self.n_cap = int(n_cap)
+        self.e_cap = int(e_cap)
+        self.base_nodes = int(base_nodes)
+        self.base_edges = int(base_edges)
+        self.compactions = int(compactions)
+        # A compaction re-derives capacity with the lineage's headroom, not
+        # whatever the process default is at that moment.
+        self.headroom = _resolve_headroom(headroom)
+        self.caches: Dict = {}
+
+    def would_overflow(self, graph: "Graph", n_new_vertices: int, n_new_edges: int) -> bool:
+        """True if appending the given counts to ``graph`` exceeds capacity."""
+        return (
+            graph.n_nodes + int(n_new_vertices) > self.n_cap
+            or graph.n_edges + int(n_new_edges) > self.e_cap
+        )
+
+    def delta_nodes(self, graph: "Graph") -> int:
+        """Vertex append cursor: rows of ``graph`` living in the delta."""
+        return graph.n_nodes - self.base_nodes
+
+    def delta_edges(self, graph: "Graph") -> int:
+        """Edge append cursor: edge slots of ``graph`` living in the delta."""
+        return graph.n_edges - self.base_edges
+
+    def _carry_to(self, old_graph: "Graph", new_graph: "Graph") -> None:
+        """Attach this store to a grown graph, compacting on overflow: the
+        old base and delta (``old_graph``'s extents) become the new base,
+        the overflowing insert lands in the new delta, and the capacities
+        are derived with headroom from the grown extents."""
+        if new_graph.n_nodes <= self.n_cap and new_graph.n_edges <= self.e_cap:
+            new_graph.store = self
+        else:
+            new_graph.store = GraphStore(
+                n_cap=_with_headroom(new_graph.n_nodes, self.headroom),
+                e_cap=_with_headroom(new_graph.n_edges, self.headroom),
+                base_nodes=old_graph.n_nodes,
+                base_edges=old_graph.n_edges,
+                compactions=self.compactions + 1,
+                headroom=self.headroom,
+            )
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (
+            f"GraphStore(n_cap={self.n_cap}, e_cap={self.e_cap}, "
+            f"base={self.base_nodes}/{self.base_edges}, "
+            f"compactions={self.compactions})"
+        )
+
+
+def _with_headroom(extent: int, headroom: Optional[float] = None) -> int:
+    return int(np.ceil(_resolve_headroom(headroom) * max(int(extent), 1)))
 
 
 def coalesce_edges(
@@ -182,6 +293,7 @@ class Graph:
     edge_weight: np.ndarray        # [E] float32
     node_attrs: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     name: str = "graph"
+    store: Optional[GraphStore] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self) -> None:
         self.senders = np.asarray(self.senders, dtype=np.int32)
@@ -241,6 +353,36 @@ class Graph:
         indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         return indptr, indices, weights
 
+    # ----------------------------------------------------- delta overlay
+    def ensure_store(
+        self,
+        n_cap: Optional[int] = None,
+        e_cap: Optional[int] = None,
+        headroom: Optional[float] = None,
+    ) -> GraphStore:
+        """Attach (or return) the delta-overlay store of this lineage.
+
+        Called when growth begins; the default capacities reserve
+        ``headroom`` times the current extents (``headroom`` defaults to the
+        ``REPRO_GROWTH_HEADROOM`` environment variable, then
+        :data:`GROWTH_HEADROOM`). Explicit caps must cover the graph.
+        """
+        if self.store is not None:
+            return self.store
+        n_cap = _with_headroom(self.n_nodes, headroom) if n_cap is None else int(n_cap)
+        e_cap = _with_headroom(self.n_edges, headroom) if e_cap is None else int(e_cap)
+        if n_cap < self.n_nodes or e_cap < self.n_edges:
+            raise ValueError(
+                f"store capacity ({n_cap}, {e_cap}) below current extents "
+                f"({self.n_nodes}, {self.n_edges})"
+            )
+        self.store = GraphStore(
+            n_cap=n_cap, e_cap=e_cap,
+            base_nodes=self.n_nodes, base_edges=self.n_edges,
+            headroom=headroom,
+        )
+        return self.store
+
     # -------------------------------------------------------------- updates
     def with_edges(
         self,
@@ -252,9 +394,11 @@ class Graph:
 
         The node set (and ``node_attrs``, shared by reference) is unchanged,
         so partition maps, evaluation logs and per-vertex state stay valid;
-        every structure-derived cache (CSR views, layouts, engines, DiDiC's
-        products) is built afresh on the new object. This is how the
-        service applies a dynamism log that inserts edges.
+        the structure-derived caches held by the graph (CSR views, layouts)
+        are built afresh on the new object. A :class:`GraphStore` is carried
+        over while the result fits its capacity (the store's engines then
+        adopt the new graph) and replaced by a compacted store otherwise.
+        This is how the service applies a dynamism log that inserts edges.
         """
         senders = np.asarray(senders, dtype=self.senders.dtype)
         receivers = np.asarray(receivers, dtype=self.receivers.dtype)
@@ -266,7 +410,7 @@ class Graph:
         for ends in (senders, receivers):
             if ends.size and (ends.min() < 0 or ends.max() >= self.n_nodes):
                 raise ValueError("with_edges endpoints must be existing vertices")
-        return Graph(
+        out = Graph(
             n_nodes=self.n_nodes,
             senders=np.concatenate([self.senders, senders]),
             receivers=np.concatenate([self.receivers, receivers]),
@@ -274,6 +418,9 @@ class Graph:
             node_attrs=self.node_attrs,
             name=self.name,
         )
+        if self.store is not None:
+            self.store._carry_to(self, out)
+        return out
 
     def with_vertices(
         self,
@@ -291,10 +438,11 @@ class Graph:
         appended rows (shape ``[n_new, ...]``) of per-node metadata; keys
         not given get zero rows of the matching dtype (sentinels such as
         ``parent = -1`` must be passed explicitly). Attr arrays are
-        reallocated, so the old graph stays valid, and every structure
-        cache is built afresh on the new object. This is how the service
-        applies a dynamism log that allocates vertices (the Insert
-        experiment).
+        reallocated, so the old graph stays valid, and the graph's own
+        structure caches are built afresh on the new object; a
+        :class:`GraphStore` is carried or compacted as in
+        :meth:`with_edges`. This is how the service applies a dynamism log
+        that allocates vertices (the Insert experiment).
         """
         n_new = int(n_new)
         if n_new < 0:
@@ -336,7 +484,7 @@ class Graph:
                 raise ValueError(
                     "with_vertices endpoints must be existing or appended vertices"
                 )
-        return Graph(
+        out = Graph(
             n_nodes=n_total,
             senders=np.concatenate([self.senders, senders]),
             receivers=np.concatenate([self.receivers, receivers]),
@@ -344,6 +492,9 @@ class Graph:
             node_attrs=new_attrs,
             name=self.name,
         )
+        if self.store is not None:
+            self.store._carry_to(self, out)
+        return out
 
     def to_block_ell(self, block_size: int = 128, undirected: bool = True) -> BlockEll:
         """Pack the (weighted) adjacency into the BELL layout for ``bell_matmul``.

@@ -39,6 +39,7 @@ from repro_torch.core.dynamism import DynamismLog, apply_dynamism, generate_dyna
 from repro_torch.core.traffic import execute_ops, generate_ops
 from repro_torch.core.traffic_batched import get_engine
 from repro_torch.graphs import datasets
+from repro_torch.graphs.structure import Graph
 
 # The suite runs in several worker processes at once; one intra-op thread
 # each keeps PyTorch from oversubscribing the cores.
@@ -481,7 +482,8 @@ def test_runtime_with_jax_maintenance_is_bit_equal(graphs, name, run):
 @pytest.mark.parametrize("name", NAMES)
 def test_runtime_lands_in_the_reference_band(graphs, name, run):
     """The port's own maintenance: each slice's T_G % within
-    ``0.25·ref + 0.01`` of the JAX run's."""
+    ``0.25·ref + 0.01`` of the JAX run's. A growth run attaches a store in
+    both packages, so its maintenance is the overlay step on both sides."""
     method, rate, every = RUNS[run]
     svc, jsvc = _start(name, graphs)
     kw = dict(n_slices=4, amount=0.05, maintain_every=every, insert_rate=rate)
@@ -515,22 +517,41 @@ def test_stress_damage_is_bit_equal(graphs, name):
 
 
 def test_growth_frees_the_old_graphs_engine(graphs):
-    """A grown graph gets its own engine; the service's old graph, and with
-    it its engine and device memory, goes as soon as the service drops it."""
+    """Growth attaches a store to the service's graph: the old graph, and
+    with it its own (storeless) engine, goes as soon as the service drops
+    it, and every grown graph is replayed by the store's one engine, which
+    adopts it in place."""
     g, _ = graphs["gis"]
-    svc = framework.PartitionedGraphService(g.with_edges(np.zeros(0), np.zeros(0)), 4, device="cpu")
+    base = Graph(n_nodes=g.n_nodes, senders=g.senders, receivers=g.receivers,
+                 edge_weight=g.edge_weight, node_attrs=g.node_attrs, name=g.name)
+    svc = framework.PartitionedGraphService(base, 4, device="cpu")
+    del base
     svc.partition_with(np.random.default_rng(0).integers(0, 4, g.n_nodes).astype(np.int32))
     ops = svc.make_ops(n_ops=20, seed=0)
     res = svc.run_ops(ops)
     old = weakref.ref(get_engine(svc.graph, ops.pattern, device="cpu"))
     old_graph = weakref.ref(svc.graph)
-    log = framework.InsertPartitioner("least_traffic", k=4, seed=0).allocate(
-        svc.parts, 0.05, vertex_traffic=res.per_vertex, insert_rate=0.5, graph=svc.graph)
+    ip = framework.InsertPartitioner("least_traffic", k=4, seed=0)
+    log = ip.allocate(svc.parts, 0.05, vertex_traffic=res.per_vertex, insert_rate=0.5,
+                      graph=svc.graph)
     svc.apply_dynamism(log)
+    store = svc.graph.store
+    assert store is not None and store.compactions == 0
     assert svc.graph.n_nodes == g.n_nodes + log.n_new_vertices > g.n_nodes
-    _assert_counters_equal(svc.run_ops(ops), execute_ops(svc.graph, ops, svc.parts, 4, engine="scalar"))
+    res = svc.run_ops(ops)
+    _assert_counters_equal(res, execute_ops(svc.graph, ops, svc.parts, 4, engine="scalar"))
     assert old_graph() is None and old() is None
-    assert get_engine(svc.graph, ops.pattern, device="cpu").n_nodes == svc.graph.n_nodes
+    eng = get_engine(svc.graph, ops.pattern, device="cpu")
+    assert eng.store is store and eng.n_nodes == svc.graph.n_nodes
+    grown = weakref.ref(svc.graph)
+    log = ip.allocate(svc.parts, 0.05, vertex_traffic=res.per_vertex, insert_rate=0.5,
+                      graph=svc.graph)
+    svc.apply_dynamism(log)
+    _assert_counters_equal(svc.run_ops(ops), execute_ops(svc.graph, ops, svc.parts, 4,
+                                                         engine="scalar"))
+    assert grown() is None and svc.graph.store is store
+    assert get_engine(svc.graph, ops.pattern, device="cpu") is eng
+    assert eng.n_nodes == svc.graph.n_nodes
 
 
 def test_inadmissible_insert_leaves_the_service_unchanged(graphs):

@@ -30,7 +30,6 @@ from repro_torch.core.didic import DidicConfig
 from repro_torch.core.dynamic_runtime import DynamicExperimentRuntime
 from repro_torch.core.dynamism import DynamismLog
 from repro_torch.core.fault import (
-    DROPPED_SITES,
     FAULT_SITES,
     FaultPlan,
     MaintenanceTimeout,
@@ -100,12 +99,11 @@ def _recovered(make, graph, ops, n_slices, amount, plan, **kw):
 # ---------------------------------------------------------------------------
 # Fault primitives against the JAX package
 # ---------------------------------------------------------------------------
-def test_fault_sites_are_the_jax_registry_without_compaction():
-    assert set(FAULT_SITES) == set(jax_fault.FAULT_SITES) - {"apply:compact"}
-    assert set(DROPPED_SITES) == {"apply:compact"}
-    assert "A10" in DROPPED_SITES["apply:compact"]
+def test_fault_sites_are_the_jax_registry():
+    assert list(FAULT_SITES) == list(jax_fault.FAULT_SITES)
     for site, text in FAULT_SITES.items():
         assert text == jax_fault.FAULT_SITES[site], site
+    assert "apply:compact" in FAULT_SITES
 
 
 def _schedule(cls):
@@ -141,9 +139,12 @@ def test_unknown_fault_sites_rejected():
         FaultPlan().crash(0, site="apply:prevalidate")
     with pytest.raises(ValueError, match="unknown fault site"):
         FaultPlan().fire("bogus-site")
-    # The JAX package's store site is dropped, so the port refuses it.
-    with pytest.raises(ValueError, match="unknown fault site"):
-        FaultPlan().crash(0, site="apply:compact")
+    # The store's compaction site is registered, as in the JAX package.
+    for cls in (FaultPlan, jax_fault.FaultPlan):
+        plan = cls().crash(0, site="apply:compact")
+        plan.begin_slice(0)
+        with pytest.raises(Exception, match="apply:compact"):
+            plan.fire("apply:compact")
 
 
 def test_retry_policy_backoff_then_deadline():
@@ -404,7 +405,13 @@ def test_capture_restore_resume_bit_exact():
     for i in range(2):
         rt.run_slice(i, ops, 0.05, insert_rate=0.4, **kw)
     snap = ServiceSnapshot.from_bytes(ServiceSnapshot.capture(rt, g, next_slice=2).to_bytes())
-    assert snap.meta["store"] is None and snap.next_slice == 2 and snap.meta["has_didic"]
+    store = rt.service.graph.store
+    assert snap.meta["store"] == {
+        "n_cap": store.n_cap, "e_cap": store.e_cap, "base_nodes": store.base_nodes,
+        "base_edges": store.base_edges, "compactions": store.compactions,
+        "headroom": store.headroom,
+    }
+    assert snap.next_slice == 2 and snap.meta["has_didic"]
     rt2 = make()
     snap.restore_into(rt2, g)
     state, want = rt2.service.runtime.state, rt.service.runtime.state
@@ -440,9 +447,9 @@ def test_snapshot_keys_match_jax():
     ours, ref = snaps
     assert sorted(ours.meta) == sorted(ref.meta) and sorted(ours.arrays) == sorted(ref.arrays)
     for key in ref.meta:
-        if key not in ("store", "checksum", "health"):
+        if key not in ("checksum", "health"):
             assert ours.meta[key] == ref.meta[key], key
-    assert ours.meta["store"] is None and ref.meta["store"] is not None
+    assert ours.meta["store"] is not None and ours.meta["store"] == ref.meta["store"]
     assert ours.meta["health"].keys() == ref.meta["health"].keys()
     for name in ref.arrays:
         np.testing.assert_array_equal(ours.arrays[name], ref.arrays[name], err_msg=name)
