@@ -137,7 +137,22 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     never reallocated, ``frontier_gather`` on every replay, each adoption
     timed beside a rebuild; (d) on an NCCL group of one rank, Twitter's
     sharded maintenance before and after growth through one capacity mesh
-    program, its T_G % in the band of the single-device overlay refine.
+    program, its T_G % in the band of the single-device overlay refine;
+15. after phase 14, the expert-parallel training step (budget 30 s; past
+    1,050 s by the script's clock its depth is cut to 2, unprobed): the
+    config registry's ``train_4k`` cell of qwen3-moe-30b-a3b at full width
+    (bf16), its step built by ``base.lm_dryrun`` on an NCCL group of one
+    rank, a (1, 1) ``HostMesh``; depth cut to the largest of 6..2 layers
+    whose step peaks within 70 GB (one step each at 1 and 2 layers gives the
+    peak's line), the global batch of 256 cut to one 4,096-token sequence,
+    AdamW at phase 10's lr without warm-up: (a) step 1's loss and every
+    gradient leaf, then 3 steps' losses and final parameters, bit-equal to
+    the dense step's, the loss falling; (b) one layer's MoE backward played
+    as 4 model ranks in turn (32 experts each), each rank's expert gradients
+    against the dense slices and the partial router and x gradients summed
+    once against the dense ones, within one bf16 step; (c) the same cell
+    built on ``meta`` by the registry, its output shapes equal to the
+    card's and its FLOPs counted there.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -149,7 +164,7 @@ and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables, phase 8's uninterrupted, recovered and
 online runs, phase 12's sharded GIS replays, phase 13's online runs and
 phase 14's replays and runs (``frontier_gather``), and phase 13's EP
-forward (``flash_attention``);
+forward and phase 15's EP training steps (``flash_attention``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``). The
@@ -3065,6 +3080,319 @@ def phase14(held, dev, smi, main_launches, t_start):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+PHASE15_BUDGET_S = 30.0
+PHASE15_CUT_AT_S = 1050.0          # past this on the script's clock the depth is PHASE15_CUT_DEPTH, unprobed
+PHASE15_TOKENS = 4096              # train_4k's sequence; its global batch of 256 cut to one sequence
+PHASE15_STEPS = 3
+PHASE15_DEPTHS = (6, 5, 4, 3, 2)   # the largest whose predicted step peak is within PHASE15_PEAK_LIMIT
+PHASE15_PROBE_DEPTHS = (1, 2)
+PHASE15_CUT_DEPTH = 2
+PHASE15_PEAK_LIMIT = 70e9
+PHASE15_MODEL_RANKS = 4            # (b): one layer's MoE backward as 4 model ranks, 32 experts each
+PHASE15_ATOL_STEPS = 1             # (b)'s bar: bfloat16 steps (2^-7) of the dense gradient's largest entry
+# x's gradient is bfloat16: each rank's partial is rounded once before the
+# partials are summed, and the dense gradient once, so m + 1 roundings of at
+# most half a step each stand between them (1.16 steps measured, run U1).
+PHASE15_X_ATOL_STEPS = (PHASE15_MODEL_RANKS + 1) / 2
+# AdamW as phase 10 trains: the registry step's default config warms up over
+# 100 steps, and its first updates (lr 3e-6, 6e-6) are below the rounding of
+# most bf16 weights, so the loss could not be seen to fall in 3 steps.
+PHASE15_LR = TRAIN_LR
+
+
+def _phase15_arch():
+    """qwen3-moe-30b-a3b at ``FULL`` width (d_model 2,048, 32/4 heads, Dh
+    128, 128 experts top-8 of d_ff 768, vocab 151,936, bf16)."""
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+
+    return FULL
+
+
+def _phase15_params(cfg, dev):
+    from repro_torch.models import transformer as tf
+
+    return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def _phase15_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(lr=PHASE15_LR, warmup_steps=1, total_steps=PHASE15_STEPS)
+
+
+def _phase15_run(step, cfg, batch, dev):
+    """``PHASE15_STEPS`` steps of ``step`` from the seeded parameters (drawn
+    here, so only the step's own state is alive): the final state, the
+    last loss, the losses and each step's seconds (host clock ending in a
+    synchronize)."""
+    from repro_torch.optim import adamw
+
+    params = _phase15_params(cfg, dev)
+    state = (params, adamw.init(params))
+    del params
+    losses, seconds, loss = [], [], None
+    for _ in range(PHASE15_STEPS):
+        t0 = time.perf_counter()
+        p, o, loss = step(state[0], state[1], batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        state = (p, o)
+        del p, o
+        losses.append(float(loss))
+    return state, loss, losses, seconds
+
+
+def _phase15_depth(cfg, batch, mesh, dev, cut):
+    """The largest of ``PHASE15_DEPTHS`` whose step peak, on the line through
+    one EP step's peak at each probe depth, is within the limit (phase 10's
+    rule); past the cut ``PHASE15_CUT_DEPTH``, unprobed."""
+    import gc
+
+    from repro_torch.configs import base
+    from repro_torch.optim import adamw
+
+    if cut:
+        return PHASE15_CUT_DEPTH, {}, {}
+    peaks = {}
+    for d in PHASE15_PROBE_DEPTHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = base.lm_dryrun(cfg, "train_4k", mesh, n_layers_override=d, opt_cfg=_phase15_opt()).step_fn
+        params = _phase15_params(dataclasses.replace(cfg, n_layers=d), dev)
+        opt = adamw.init(params)
+        out = step(params, opt, batch)
+        del params, opt, out
+        torch.cuda.synchronize()
+        peaks[d] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (d0, p0), (d1, p1) = sorted(peaks.items())
+    per_layer = (p1 - p0) / (d1 - d0)
+    predicted = {d: peaks.get(d, p1 + (d - d1) * per_layer) for d in PHASE15_DEPTHS}
+    depth = next((d for d in PHASE15_DEPTHS if predicted[d] <= PHASE15_PEAK_LIMIT), None)
+    say(f"phase 15: {cfg.name} training peak, measured: " + ", ".join(
+        f"{d} layers {p / 1e9:.2f} GB" for d, p in sorted(peaks.items()))
+        + f"; {per_layer / 1e9:.3f} GB a layer; predicted " + ", ".join(
+        f"{d} layers {predicted[d] / 1e9:.2f} GB" for d in PHASE15_DEPTHS))
+    check(depth is not None, f"phase 15: a depth of {PHASE15_DEPTHS} trains within "
+                             f"{PHASE15_PEAK_LIMIT / 1e9:.0f} GB")
+    return depth, peaks, predicted
+
+
+def _phase15_ep_step(cfg, depth, batch, mesh, dev, main_launches):
+    """(a) The registry's ``train_4k`` step (``lm_dryrun`` on the live mesh:
+    expert parallel) against the dense step: step 1's loss and every
+    gradient leaf, then ``PHASE15_STEPS`` steps each, the losses and the
+    final parameters, all bit for bit. The EP steps are the main-path run
+    (one ``flash_attention`` launch a layer a step, on ``wgmma``)."""
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import base
+    from repro_torch.launch.dryrun import output_shapes
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    ep_step = base.lm_dryrun(cfg, "train_4k", mesh, n_layers_override=depth, opt_cfg=_phase15_opt()).step_fn
+    params = _phase15_params(cut, dev)
+    loss_ep, g_ep = base.value_and_grad(lambda p: tf.loss_fn(cut, p, batch, mesh=mesh), params, mesh)
+    loss_d, g_d = base.value_and_grad(lambda p: tf.loss_fn(cut, p, batch), params)
+    n_leaves = len(list(adamw.leaves(g_d)))
+    same = torch.equal(loss_ep, loss_d) and all(
+        torch.equal(a, b) for a, b in zip(adamw.leaves(g_ep), adamw.leaves(g_d)))
+    finite = all(bool(torch.isfinite(g).all()) for g in adamw.leaves(g_ep))
+    experts = [bool(x) for x in (g_ep["layers"]["moe"]["w_up"].float().abs().amax(dim=(1, 2, 3)) > 0).tolist()]
+    del params, g_ep, g_d
+    check(same and finite, f"phase 15: step 1 on the (1, 1) mesh: the EP loss ({float(loss_ep):.6f}) and all "
+                           f"{n_leaves} gradient leaves == the dense step's, bit for bit, all finite")
+    check(all(experts), f"phase 15: every layer's expert stack has a non-zero gradient ({experts})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    (state, loss, losses, seconds), counts = _counted(lambda: _phase15_run(ep_step, cut, batch, dev),
+                                                      main_launches)
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+    shapes = output_shapes((state[0], state[1], loss))
+    t0 = time.perf_counter()
+    ep_final = [t.cpu() for t in adamw.leaves(state[0])]
+    copy_s = time.perf_counter() - t0
+    del state, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_state, _, dense_losses, dense_seconds = _phase15_run(base.lm_train_step(cut, None, _phase15_opt()), cut,
+                                                               batch, dev)
+    equal = all(torch.equal(a, b.cpu()) for a, b in zip(ep_final, adamw.leaves(dense_state[0])))
+    del dense_state, ep_final
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = PHASE15_STEPS * depth
+    check(losses == dense_losses and equal,
+          f"phase 15: {PHASE15_STEPS} EP steps == {PHASE15_STEPS} dense steps, bit for bit: losses "
+          f"({', '.join(f'{x:.6f}' for x in losses)}) and every parameter after step {PHASE15_STEPS}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase 15: the loss falls, {losses[0]:.6f} -> {losses[-1]:.6f}")
+    check(counts["flash_attention"] == n and routes == {"wgmma": n},
+          f"phase 15: the EP steps launched flash_attention {counts['flash_attention']} times, one a layer "
+          f"a step, all on wgmma ({routes}), none in the backward")
+    check(peak <= PHASE15_PEAK_LIMIT, f"phase 15: the EP run's peak {peak / 1e9:.2f} GB at {depth} layers "
+                                      f"(<= {PHASE15_PEAK_LIMIT / 1e9:.0f} GB)")
+    median_s = statistics.median(seconds)
+    say(f"phase 15: {cut.name} {depth} layers EP, {PHASE15_STEPS} steps of {PHASE15_TOKENS} tokens: step s "
+        f"{', '.join(f'{x:.4f}' for x in seconds)} (dense {', '.join(f'{x:.4f}' for x in dense_seconds)}); "
+        f"median {median_s:.4f} s, {PHASE15_TOKENS / median_s:.0f} tokens/s; peak {peak:,} B")
+    return {"depth": depth, "parameters": cut.param_count(), "losses": losses, "step_s": seconds,
+            "dense_step_s": dense_seconds, "median_step_s": median_s, "tokens_per_s": PHASE15_TOKENS / median_s,
+            "peak_device_bytes": peak, "flash_attention_launches": counts["flash_attention"],
+            "flash_attention_routes": routes, "host_copy_s": copy_s}, shapes
+
+
+def _phase15_ep_ranks(cfg, dev):
+    """(b) One layer's MoE backward as ``PHASE15_MODEL_RANKS`` model ranks
+    played in turn (``_ModelRankView``): rank q holds experts ``[32q, 32q +
+    32)``, routes all 4,096 tokens and backpropagates ``sum(y_q · w)``
+    through its own part ``y_q`` (the view's model-axis reduce is the
+    identity, so each rank's router and x gradients are its partial ones).
+    Each rank's expert gradients against the matching slice of the dense
+    gradient; the partial router and x gradients summed once against the
+    dense ones. The loss leaves the aux out: it is the same on every rank
+    (its gradient counted once is held on the CPU, 4 gloo ranks)."""
+    from repro_torch.distributed.sharding import ep_param_specs, shard_tree
+    from repro_torch.models.moe import moe_fwd, moe_fwd_ep, moe_init
+    from repro_torch.optim.adamw import leaves, tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lp = moe_init(gen, cfg.d_model, cfg.moe, cfg.dtype, dev)
+    x = torch.randn((1, PHASE15_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    w = torch.randn((1, PHASE15_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    names = ["x", *sorted(lp)]
+
+    def grads(fn, p):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        xl = x.detach().requires_grad_(True)
+        y, _ = fn(live, xl)
+        return dict(zip(names, torch.autograd.grad((y.float() * w.float()).sum(), [xl, *leaves(live)])))
+
+    dense = grads(lambda p, xx: moe_fwd(p, xx, cfg.moe), lp)
+    e_loc = cfg.moe.n_experts // PHASE15_MODEL_RANKS
+    summed = {"x": torch.zeros_like(dense["x"], dtype=torch.float32),
+              "router": torch.zeros_like(dense["router"])}
+    expert_gap = {k: 0.0 for k in ("w_gate", "w_up", "w_down")}
+    for q in range(PHASE15_MODEL_RANKS):
+        view = _ModelRankView(q, PHASE15_MODEL_RANKS)
+        mine = shard_tree({"moe": lp}, ep_param_specs({"layers": {"moe": lp}})["layers"], view)["moe"]
+        g = grads(lambda p, xx: moe_fwd_ep(p, xx, cfg.moe, view), mine)
+        for k in expert_gap:
+            want = dense[k][q * e_loc:(q + 1) * e_loc]
+            expert_gap[k] = max(expert_gap[k], float((g[k].float() - want.float()).abs().max()))
+        summed["x"] += g["x"].float()
+        summed["router"] += g["router"]
+        del mine, g
+    top = {k: float(dense[k].float().abs().max()) for k in names}
+    gaps = dict(expert_gap, x=float((summed["x"] - dense["x"].float()).abs().max()),
+                router=float((summed["router"] - dense["router"]).abs().max()))
+    steps = {k: PHASE15_X_ATOL_STEPS if k == "x" else PHASE15_ATOL_STEPS for k in names}
+    check(all(gaps[k] <= steps[k] * 2.0 ** -7 * top[k] for k in names) and all(top[k] > 0 for k in names),
+          f"phase 15: one layer's MoE backward on {PHASE15_MODEL_RANKS} model ranks ({e_loc} experts each): "
+          f"each rank's expert gradients == the dense slice and the partial router gradients summed once == the "
+          f"dense one within {PHASE15_ATOL_STEPS} bfloat16 step of the largest entry, the partial x gradients "
+          f"within {PHASE15_X_ATOL_STEPS} (" + ", ".join(
+              f"{k} {gaps[k]:.3g} of {top[k]:.3g}, {gaps[k] / (2.0 ** -7 * top[k]):.2f} steps" for k in names) + ")")
+    return {"model_ranks": PHASE15_MODEL_RANKS, "max_abs_gap": gaps, "max_abs_dense": top,
+            "bf16_steps": {k: gaps[k] / (2.0 ** -7 * top[k]) for k in names}}
+
+
+def _phase15_meta(cfg, depth, card_shapes, seconds):
+    """(c) The same cell built on ``meta`` by the registry (a (1, 1)
+    ``MetaMesh``, the card's batch of one sequence): its output shapes
+    against the card's, and the step's FLOPs as counted there."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import base
+    from repro_torch.launch.dryrun import output_shapes
+    from repro_torch.launch.mesh import MetaMesh
+
+    meta_mesh = MetaMesh({"data": 1, "model": 1})
+    spec = base.lm_dryrun(cfg, "train_4k", meta_mesh, n_layers_override=depth)
+    params, opt, _ = base.rank_args(spec, meta_mesh)
+    batch = {k: torch.empty((1, PHASE15_TOKENS), dtype=torch.int32, device="meta") for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        out = spec.step_fn(params, opt, batch)
+    meta_s = time.perf_counter() - t0
+    shapes = output_shapes(out)
+    flops = float(counter.get_total_flops())
+    check(shapes == card_shapes, f"phase 15: the registry's cell on meta gives the card's {len(shapes)} output "
+                                 f"shapes and dtypes ({meta_s:.2f} s, nothing allocated)")
+    median_s = statistics.median(seconds)
+    say(f"phase 15: {flops / 1e12:.2f} TFLOP a step counted on meta; {flops / median_s / 1e12:.1f} TFLOP/s "
+        f"on the card ({flops / median_s / PEAK_BF16_FLOPS * 100:.1f} % of the bf16 peak)")
+    return {"output_leaves": len(shapes), "flops_per_step": flops, "tflops_per_s": flops / median_s / 1e12,
+            "meta_s": meta_s}
+
+
+def phase15(dev, smi, main_launches, t_start):
+    """qwen3-moe-30b-a3b's ``train_4k`` step from the config registry, expert
+    parallel on an NCCL group of one rank, a (1, 1) ``HostMesh`` (module
+    docstring, phase 15)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    cut = t_phase - t_start > PHASE15_CUT_AT_S
+    cfg = _phase15_arch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    check(resident < PHASE9_RESIDENT_LIMIT,
+          f"phase 15: {resident:,} bytes allocated on the card before {cfg.name} is drawn (< 2 GB)")
+    raw = next(lm_token_stream(LmDataConfig(vocab=cfg.vocab, seq_len=PHASE15_TOKENS, batch=1)))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    out = {"phase": 15, "card": smi, "budget_s": PHASE15_BUDGET_S, "cut": cut, "model": cfg.name,
+           "tokens": PHASE15_TOKENS}
+    _open_nccl_world1()
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1},
+              f"phase 15: an NCCL group of {mesh.size} rank, mesh {mesh.shape} on {mesh.device}")
+        t0 = time.perf_counter()
+        depth, probes, predicted = _phase15_depth(cfg, batch, mesh, dev, cut)
+        out["probe_peak_device_bytes"], out["predicted_peak_device_bytes"] = probes, predicted
+        out["probe_s"] = time.perf_counter() - t0
+        say(f"phase 15: {cfg.name} trained at full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads, Dh {cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, "
+            f"vocab {cfg.vocab}, {cfg.dtype}); cut: depth {cfg.n_layers} -> {depth} layers (AdamW's float32 "
+            f"moments and a pure step do not fit 48 layers on one card), the global batch of 256 sequences "
+            f"-> 1 of {PHASE15_TOKENS} tokens, repeated each step; AdamW at lr {PHASE15_LR} without warm-up "
+            f"(the default warm-up's first updates round away in bf16)"
+            + (" (past the cut: depth unprobed)" if cut else ""))
+        t0 = time.perf_counter()
+        out["ep_step"], card_shapes = _phase15_ep_step(cfg, depth, batch, mesh, dev, main_launches)
+        out["ep_step"]["part_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out["ep_ranks"] = _phase15_ep_ranks(cfg, dev)
+    out["ep_ranks"]["part_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["meta"] = _phase15_meta(cfg, depth, card_shapes, out["ep_step"]["step_s"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    say(f"phase 15: {out['phase_s']:.1f} s (budget {PHASE15_BUDGET_S:.0f} s"
+        + (", over" if out["phase_s"] > PHASE15_BUDGET_S else "") + (", cut" if cut else "") + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -3146,12 +3474,14 @@ def main() -> int:
     say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     phase14(held, dev, smi, main_launches, t_start)
     say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    phase15(dev, smi, main_launches, t_start)
+    say(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
         "replays of phase 12, the EP forward and the mesh online runs of phase 13, the replays and "
-        "runs of phase 14): " + json.dumps(main_launches, sort_keys=True))
+        "runs of phase 14, the EP training steps of phase 15): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -1,4 +1,12 @@
-"""Model configurations of the port (twin of ``repro.configs``): the full
-widths of the models it runs, and ``base.GNN_SHAPES``, the shapes the GNN
-and MACE configs are built at. The JAX package's registry and dry-run are
-JAX lowering tools and are not ported yet (ROADMAP A12.6)."""
+"""Model configurations of the port and their registry (twin of ``repro.configs``).
+
+Each architecture module holds its full published config (``FULL``) and
+registers an :class:`~repro_torch.configs.base.ArchConfig` with
+:mod:`.base`: its shapes, skipped cells, dry-run cell builders and smoke
+run. ``python -m repro_torch.launch.dryrun`` runs the cells on the
+``meta`` device."""
+
+from repro_torch.configs import base
+from repro_torch.configs.base import all_archs, all_cells, get, skipped_cells
+
+__all__ = ["base", "all_archs", "all_cells", "get", "skipped_cells"]

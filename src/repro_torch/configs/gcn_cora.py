@@ -1,12 +1,13 @@
 """gcn-cora [gnn] — 2L d_hidden=16 mean aggregation sym-norm
 [arXiv:1609.02907; paper]."""
 
+import functools
 from typing import Dict
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import GNN_SHAPES
+from repro_torch.configs import base
 from repro_torch.models.gnn import GnnConfig
 
 
@@ -17,7 +18,7 @@ def _cfg(dims) -> GnnConfig:
     )
 
 
-FULL = _cfg(GNN_SHAPES["full_graph_sm"])
+FULL = _cfg(base.GNN_SHAPES["full_graph_sm"])
 
 
 def smoke(device=None) -> Dict[str, float]:
@@ -41,3 +42,13 @@ def smoke(device=None) -> Dict[str, float]:
     if out.shape != (g.n_nodes, 4) or not all(bool(torch.isfinite(t).all()) for t in (out, *grads)):
         raise RuntimeError("gcn-cora smoke: wrong shape or non-finite values")
     return {"loss": float(loss.detach())}
+
+
+base.register(base.ArchConfig(
+    arch_id="gcn-cora",
+    family="gnn",
+    shapes=tuple(base.GNN_SHAPES),
+    skipped={},
+    dryrun=functools.partial(base.gnn_dryrun, "gcn", _cfg),
+    smoke=smoke,
+))

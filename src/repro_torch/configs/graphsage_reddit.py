@@ -2,13 +2,14 @@
 sample_sizes=25-10 (arch) / fanout 15-10 (assigned minibatch shape)
 [arXiv:1706.02216; paper]."""
 
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import GNN_SHAPES
+from repro_torch.configs import base
 from repro_torch.models.gnn import GnnConfig
 
 
@@ -19,7 +20,7 @@ def _cfg(dims) -> GnnConfig:
     )
 
 
-FULL = _cfg(GNN_SHAPES["minibatch_lg"])
+FULL = _cfg(base.GNN_SHAPES["minibatch_lg"])
 
 
 def smoke(device=None) -> Dict[str, float]:
@@ -49,3 +50,13 @@ def smoke(device=None) -> Dict[str, float]:
         raise RuntimeError("graphsage-reddit smoke: wrong shape or non-finite values")
     loss = gnn.node_classification_loss(out2, torch.as_tensor(labels[:16], device=dev))
     return {"loss": float(loss.detach())}
+
+
+base.register(base.ArchConfig(
+    arch_id="graphsage-reddit",
+    family="gnn",
+    shapes=tuple(base.GNN_SHAPES),
+    skipped={},
+    dryrun=functools.partial(base.gnn_dryrun, "sage", _cfg),
+    smoke=smoke,
+))

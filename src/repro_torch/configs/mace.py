@@ -1,13 +1,14 @@
 """mace [gnn] — 2L d_hidden=128 l_max=2 correlation_order=3 n_rbf=8
 E(3)-equivariant ACE message passing [arXiv:2206.07697; paper]."""
 
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import GNN_SHAPES
+from repro_torch.configs import base
 from repro_torch.models.mace import MaceConfig
 
 
@@ -18,7 +19,7 @@ def _cfg(dims) -> MaceConfig:
     )
 
 
-FULL = _cfg(GNN_SHAPES["molecule"])
+FULL = _cfg(base.GNN_SHAPES["molecule"])
 
 
 def smoke(device=None) -> Dict[str, float]:
@@ -47,3 +48,13 @@ def smoke(device=None) -> Dict[str, float]:
     if float((e - e2).abs().max()) >= 1e-4:
         raise RuntimeError("mace smoke: rotation invariance violated")
     return {"energy_mean": float(e.mean())}
+
+
+base.register(base.ArchConfig(
+    arch_id="mace",
+    family="gnn",
+    shapes=tuple(base.GNN_SHAPES),
+    skipped={},
+    dryrun=functools.partial(base.gnn_dryrun, "mace", _cfg),
+    smoke=smoke,
+))

@@ -2,12 +2,13 @@
 [arXiv:2010.03409]. ``FULL`` takes its input width from the registry's
 first shape (``full_graph_sm``), as the JAX registry's cells do."""
 
+import functools
 from typing import Dict
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import GNN_SHAPES
+from repro_torch.configs import base
 from repro_torch.models.gnn import GnnConfig
 
 
@@ -19,7 +20,7 @@ def _cfg(dims) -> GnnConfig:
     )
 
 
-FULL = _cfg(GNN_SHAPES["full_graph_sm"])
+FULL = _cfg(base.GNN_SHAPES["full_graph_sm"])
 
 
 def smoke(device=None) -> Dict[str, float]:
@@ -44,3 +45,13 @@ def smoke(device=None) -> Dict[str, float]:
     if out.shape != (g.n_nodes, 2) or not all(bool(torch.isfinite(t).all()) for t in (out, *grads)):
         raise RuntimeError("meshgraphnet smoke: wrong shape or non-finite values")
     return {"loss": float(loss.detach())}
+
+
+base.register(base.ArchConfig(
+    arch_id="meshgraphnet",
+    family="gnn",
+    shapes=tuple(base.GNN_SHAPES),
+    skipped={},
+    dryrun=functools.partial(base.gnn_dryrun, "meshgraphnet", _cfg),
+    smoke=smoke,
+))

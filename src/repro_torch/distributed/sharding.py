@@ -25,7 +25,10 @@ A process group has no global array, so :func:`shard_tree` stands for the
 JAX package's ``to_shardings`` + ``device_put``: it gives this rank its
 slice of each leaf, and :func:`gather_tree` puts the leaves back together
 with ``all_gather`` along each sharded dimension's axes. Both take a
-:class:`~repro_torch.launch.mesh.HostMesh`.
+:class:`~repro_torch.launch.mesh.HostMesh` (or, on ``meta`` tensors, the
+dry run's :class:`~repro_torch.launch.mesh.MetaMesh`). :func:`rank_spec`
+says how the port runs a leaf that the JAX layout splits over the model
+axis.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ Spec = Tuple[Entry, ...]
 Tree = Dict[str, Any]
 
 __all__ = [
-    "Spec", "batch_axes", "lm_param_specs", "ep_param_specs", "replicated_specs", "opt_state_specs", "lm_batch_spec",
-    "kv_cache_spec", "gnn_node_spec", "din_param_specs", "shard_tree", "gather_tree",
+    "Spec", "batch_axes", "data_shards", "lm_param_specs", "ep_param_specs", "replicated_specs", "opt_state_specs", "lm_batch_spec",
+    "kv_cache_spec", "gnn_node_spec", "din_param_specs", "leaf_shards", "shard_leaf", "shard_tree", "gather_tree",
+    "rank_spec",
 ]
 
 
@@ -58,6 +62,14 @@ def spec(*entries: Entry) -> Spec:
 def batch_axes(mesh) -> Tuple[str, ...]:
     """Data-parallel axes: ('pod', 'data') on a multi-pod mesh, ('data',) otherwise."""
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def data_shards(mesh) -> int:
+    """Ranks along the batch axes: the data shards of a batch."""
+    n = 1
+    for a in batch_axes(mesh):
+        n *= mesh.shape[a]
+    return n
 
 
 def _routed_expert(path: str) -> bool:
@@ -153,31 +165,52 @@ def _shards(mesh, entry: Entry) -> int:
     return n
 
 
+def leaf_shards(s: Spec, mesh) -> int:
+    """The ranks a leaf of spec ``s`` is split across (1: whole on each)."""
+    n = 1
+    for entry in s:
+        n *= _shards(mesh, entry)
+    return n
+
+
 def _walk(fn, tree: Tree, specs: Tree) -> Tree:
     return {k: _walk(fn, v, specs[k]) if isinstance(v, dict) else fn(v, specs[k]) for k, v in tree.items()}
 
 
-def shard_tree(tree: Tree, specs: Tree, mesh) -> Tree:
-    """This rank's slice of every leaf: each dimension whose entry names
+def shard_leaf(leaf: torch.Tensor, s: Spec, mesh) -> torch.Tensor:
+    """This rank's slice of one leaf: each dimension whose entry names
     axes is cut into as many equal blocks as those axes have ranks, and
     the rank keeps the block at its index along them. A leaf split
     nowhere is returned as it is (no copy); a split leaf is a copy, so the
     whole one can be freed. A dimension that does not divide raises."""
-    def cut(leaf: torch.Tensor, s: Spec) -> torch.Tensor:
-        if len(s) > leaf.dim():
-            raise ValueError(f"spec {s} has more entries than the leaf's {leaf.dim()} dimensions")
-        out = leaf
-        for dim, entry in enumerate(s):
-            n = _shards(mesh, entry)
-            if n == 1:
-                continue
-            if out.shape[dim] % n:
-                raise ValueError(f"dimension {dim} of size {out.shape[dim]} does not split into {n} shards")
-            size = out.shape[dim] // n
-            out = out.narrow(dim, mesh.axis_index(_entry_axes(entry)) * size, size)
-        return out if out is leaf else out.clone()
+    if len(s) > leaf.dim():
+        raise ValueError(f"spec {s} has more entries than the leaf's {leaf.dim()} dimensions")
+    out = leaf
+    for dim, entry in enumerate(s):
+        n = _shards(mesh, entry)
+        if n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {out.shape[dim]} does not split into {n} shards")
+        size = out.shape[dim] // n
+        out = out.narrow(dim, mesh.axis_index(_entry_axes(entry)) * size, size)
+    return out if out is leaf else out.clone()
 
-    return _walk(cut, tree, specs)
+
+def shard_tree(tree: Tree, specs: Tree, mesh) -> Tree:
+    """This rank's slice of every leaf (:func:`shard_leaf`)."""
+    return _walk(lambda leaf, s: shard_leaf(leaf, s, mesh), tree, specs)
+
+
+def rank_spec(path: str, s: Spec, expert_parallel: bool) -> Spec:
+    """How the port places a leaf at ``path`` that the JAX layout gives
+    spec ``s``: the batch axes keep their split, and the model axis splits
+    only a routed expert stack of an expert-parallel step (as
+    :func:`ep_param_specs`). The port runs no tensor-parallel product, so
+    every other leaf is whole along the model axis."""
+    if expert_parallel and _routed_expert(path):
+        return s
+    return spec(*(tuple(a for a in _entry_axes(e) if a != "model") for e in s))
 
 
 def gather_tree(tree: Tree, specs: Tree, mesh) -> Tree:

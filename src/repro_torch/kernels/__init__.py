@@ -8,7 +8,8 @@ root (keyed by a hash of the source and the flags, so an edited source
 rebuilds), loads it with :mod:`ctypes`, and counts launches.
 
 Dispatch is by the device of the tensors a wrapper is given, never by
-``try``/``except``: a CPU tensor goes to the kernel's plain PyTorch version,
+``try``/``except``: a CPU tensor goes to the kernel's plain PyTorch version
+(so does a ``meta`` tensor, which has shapes and no data: the dry run's),
 a CUDA tensor to the kernel. A failed build or launch raises.
 
 Every kernel package registers its :class:`CudaKernel` in :data:`KERNELS`

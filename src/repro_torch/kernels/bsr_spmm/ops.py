@@ -1,7 +1,7 @@
 """Wrappers of the block-ELL SpMM kernel (twin of ``repro.kernels.bsr_spmm``).
 
-:func:`bell_matmul` dispatches by the device of ``x``: a CPU tensor goes to
-the plain version (:mod:`.ref`), a CUDA tensor to the hand-written kernel
+:func:`bell_matmul` dispatches by the device of ``x``: a CPU or ``meta``
+tensor goes to the plain version (:mod:`.ref`), a CUDA tensor to the hand-written kernel
 ``csrc/bell_matmul.cu``, which raises if it fails to build or launch. The
 kernel streams block rows with 16-byte copies, so on the card a block row
 (``bs`` values) must be a multiple of 16 bytes: ``bs % 4 == 0`` in float32,
@@ -37,10 +37,10 @@ def bell_matmul(
     x: torch.Tensor,            # [nbr*bs, F], blocks' dtype
 ) -> torch.Tensor:
     """``A @ x`` over the block-ELL ``A``; returns ``x``'s dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return bell_matmul_ref(blocks, block_cols, block_mask, x)
     if x.device.type != "cuda":
-        raise ValueError(f"bell_matmul runs on cpu or cuda tensors, got {x.device}")
+        raise ValueError(f"bell_matmul runs on cpu, meta or cuda tensors, got {x.device}")
     if x.dtype not in _DTYPES or blocks.dtype != x.dtype:
         raise TypeError(f"blocks {blocks.dtype} and x {x.dtype} must both be float32 or bfloat16")
     check_cuda_tensor(blocks, "blocks", (x.dtype,), 4, x.device)

@@ -1,7 +1,7 @@
 """Wrappers of the EmbeddingBag kernel (twin of ``repro.kernels.embedding_bag``).
 
-:func:`embedding_bag` dispatches by the device of ``table``: a CPU tensor
-goes to the plain version (:mod:`.ref`), a CUDA tensor to the hand-written
+:func:`embedding_bag` dispatches by the device of ``table``: a CPU or
+``meta`` tensor goes to the plain version (:mod:`.ref`), a CUDA tensor to the hand-written
 kernel ``csrc/embedding_bag.cu``, which raises if it fails to build or
 launch. :func:`embedding_bag_auto` adds ``sum``/``mean`` pooling on top,
 normalising ``mean`` weights exactly as the JAX package does. The JAX
@@ -11,7 +11,8 @@ On the card the kernel's output is differentiable: :func:`embedding_bag`
 runs it inside a ``torch.autograd.Function`` (:class:`_EmbeddingBag`) whose
 forward is one counted launch and whose backward is the plain
 :func:`.ref.embedding_bag_bwd_ref`, as the JAX package differentiates its
-oracle. :data:`KERNEL` counts forward launches only.
+oracle. :data:`KERNEL` counts forward launches only. On the CPU and on
+``meta`` autograd differentiates the plain version itself.
 """
 
 from __future__ import annotations
@@ -37,10 +38,10 @@ def embedding_bag(
     """``out[b] = Σ_l weights[b, l] · table[indices[b, l]]`` → ``[B, D]``.
 
     The kernel does not check that indices lie in ``[0, V)``."""
-    if table.device.type == "cpu":
+    if table.device.type in ("cpu", "meta"):
         return embedding_bag_ref(table, indices, weights)
     if table.device.type != "cuda":
-        raise ValueError(f"embedding_bag runs on cpu or cuda tensors, got {table.device}")
+        raise ValueError(f"embedding_bag runs on cpu, meta or cuda tensors, got {table.device}")
     return _EmbeddingBag.apply(table, indices, weights)
 
 

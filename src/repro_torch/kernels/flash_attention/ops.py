@@ -1,7 +1,7 @@
 """Wrappers of the flash-attention kernels (twin of ``repro.kernels.flash_attention``).
 
 :func:`flash_attention` takes the kernel's batch-head-major layout and
-dispatches by the device of ``q``: a CPU tensor goes to the plain version
+dispatches by the device of ``q``: a CPU or ``meta`` tensor goes to the plain version
 (:func:`.ref.attention_ref`), a CUDA tensor to a hand-written kernel in
 ``csrc/flash_attention.cu``, which raises if it fails to build or launch.
 :func:`mha` takes ``[B, T, H, Dh]`` layouts and hands
@@ -23,8 +23,8 @@ runs it inside a ``torch.autograd.Function`` (:class:`_FlashAttention`)
 whose forward is one counted launch and whose backward is the plain
 :func:`.ref.attention_bwd_ref`, as the JAX package differentiates its oracle
 (no Pallas kernel of it has a backward). So :data:`KERNEL` counts forward
-launches only; a backward launches nothing. On the CPU the plain forward is
-differentiated by autograd itself.
+launches only; a backward launches nothing. On the CPU and on ``meta`` the
+plain forward is differentiated by autograd itself.
 
 The JAX package's ``use_kernel`` and ``flat_layout`` switches and its TPU
 tile sizes ``block_q``/``block_k`` have no twin: the device decides, and
@@ -72,10 +72,10 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Causal or non-causal GQA attention; returns q's type and shape."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
+        raise ValueError(f"flash_attention runs on cpu, meta or cuda tensors, got {q.device}")
     return _FlashAttention.apply(q, k, v, causal, q_offset)
 
 

@@ -1,7 +1,7 @@
 """Wrappers of the frontier gather kernel (twin of ``repro.kernels.frontier``).
 
-:func:`frontier_gather` dispatches by the device of ``x``: a CPU tensor goes
-to the plain version (:mod:`.ref`), a CUDA tensor to the hand-written
+:func:`frontier_gather` dispatches by the device of ``x``: a CPU or ``meta``
+tensor goes to the plain version (:mod:`.ref`), a CUDA tensor to the hand-written
 kernel ``csrc/frontier_gather.cu``, which raises if it fails to build or
 launch.
 
@@ -76,10 +76,10 @@ def frontier_gather(
     it."""
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return frontier_gather_ref(x, nbr, w, mode=mode, tail=tail)
     if x.device.type != "cuda":
-        raise ValueError(f"frontier_gather runs on cpu or cuda tensors, got {x.device}")
+        raise ValueError(f"frontier_gather runs on cpu, meta or cuda tensors, got {x.device}")
     check_cuda_tensor(x, "x", (torch.float32,), 2, x.device)
     check_cuda_tensor(nbr, "nbr", (torch.int32,), 2, x.device)
     check_cuda_tensor(w, "w", (torch.float32,), 2, x.device)

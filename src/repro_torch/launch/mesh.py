@@ -14,8 +14,24 @@ axis) has a subgroup of its own for collectives along one axis.
 The caller opens a group (``torch.distributed.init_process_group``,
 ``torchrun``, or the launchers' :func:`open_group`) and a mesh is built
 over it; without one, :func:`make_replay_mesh` and :func:`make_host_mesh`
-raise. The JAX package's ``make_production_mesh`` waits for the config
-registry (ROADMAP A12.6).
+raise.
+
+:func:`make_production_mesh` describes the JAX package's production mesh,
+(16, 16) ``("data", "model")`` or (2, 16, 16) ``("pod", "data", "model")``,
+with no process group: a :class:`MetaMesh`, this side of the dry run
+(``python -m repro_torch.launch.dryrun``). It plays rank 0; its collectives
+take ``meta`` tensors only, return results of the right shape and count
+the bytes each collective kind receives (the twin of the JAX dry run's
+collective bytes, which it parses from the compiled HLO).
+
+:func:`sum_replicated` and :func:`grad_sum` are the two collectives of a
+model-parallel region (Megatron's g and f) as ``torch.autograd.Function``s
+on a mesh's subgroups. The port follows the JAX convention that every rank
+holds the global loss: a sum whose result is then replicated passes its
+cotangent through unchanged (g), and an input that feeds each rank's own
+part of a sum gets its gradient summed over those ranks (f).
+``torch.distributed.nn.functional.all_reduce`` is neither: its backward
+all-reduces the cotangent, which counts a replicated loss once per rank.
 """
 
 from __future__ import annotations
@@ -30,9 +46,12 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["HostMesh", "ReplayMesh", "make_host_mesh", "make_replay_mesh", "open_group"]
+__all__ = ["HostMesh", "MetaMesh", "ReplayMesh", "grad_sum", "make_host_mesh", "make_production_mesh",
+           "make_replay_mesh", "open_group", "sum_replicated"]
 
 AXES = ("data", "model")
+#: the collective kinds of the JAX dry run's HLO count, in its order
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
 
 @dataclasses.dataclass(eq=False)
@@ -286,3 +305,98 @@ def make_host_mesh(model: int = 1, device=None) -> HostMesh:
     dev = _rank_device(device)
     return HostMesh(size=n, rank=rank, device=dev, comm_device=_backend_device(dev),
                     model=model, groups=groups)
+
+
+# ------------------------------------------------------------ production mesh
+@dataclasses.dataclass(eq=False)
+class MetaMesh:
+    """A mesh with no process group: its axis sizes and rank 0's view of it.
+
+    The dry run's stand-in for a mesh of ``size`` devices. Every axis index
+    is 0. Its collective, ``all_reduce`` (the one the cells' steps call),
+    takes a ``meta`` tensor only (the dry run allocates nothing), returns a
+    ``meta`` result of its shape and adds the bytes this rank receives to
+    :attr:`collectives` under the JAX dry run's names (the output size, as
+    the JAX dry run sums HLO outputs). A collective along axes of one device
+    moves nothing and is not counted."""
+
+    shape: Dict[str, int]
+    collectives: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=lambda: {k: {"count": 0, "bytes": 0} for k in COLLECTIVES})
+
+    @property
+    def size(self) -> int:
+        return self._span(None)
+
+    def axis_index(self, axes) -> int:
+        self._span(axes)
+        return 0
+
+    def collective_stats(self) -> Dict[str, object]:
+        """The counts by kind with ``total_bytes`` and ``total_count``, as
+        the JAX dry run's ``collective_stats`` lays them out."""
+        out: Dict[str, object] = {k: dict(v) for k, v in self.collectives.items()}
+        out["total_bytes"] = sum(v["bytes"] for v in self.collectives.values())
+        out["total_count"] = sum(v["count"] for v in self.collectives.values())
+        return out
+
+    def _span(self, axes) -> int:
+        names = tuple(self.shape) if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+        n = 1
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"unknown mesh axis {a!r}; the axes are {tuple(self.shape)}")
+            n *= self.shape[a]
+        return n
+
+    def all_reduce(self, t: torch.Tensor, op=None, axis=None) -> torch.Tensor:
+        if t.device.type != "meta":
+            raise ValueError(f"a MetaMesh collective takes meta tensors, got one on {t.device}")
+        if self._span(axis) > 1:
+            self.collectives["all-reduce"]["count"] += 1
+            self.collectives["all-reduce"]["bytes"] += t.numel() * t.element_size()
+        return torch.empty_like(t)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MetaMesh:
+    """The JAX package's production mesh as a :class:`MetaMesh`: (16, 16)
+    ``("data", "model")``, or (2, 16, 16) ``("pod", "data", "model")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MetaMesh(dict(zip(axes, shape)))
+
+
+# ----------------------------------------------- model-parallel collectives
+class _SumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh.all_reduce(t, axis=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous(), axis=ctx.axis), None, None
+
+
+def sum_replicated(t: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``t`` summed over the ranks along ``axis``, the result replicated on
+    each (Megatron's g): its backward passes the cotangent through, since
+    every rank holds the same loss of it."""
+    return _SumReplicated.apply(t, mesh, axis)
+
+
+def grad_sum(t: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``t`` as it is (Megatron's f), for an input each rank along ``axis``
+    feeds into its own part of a :func:`sum_replicated`: the backward sums
+    the ranks' cotangents, so the gradient is the whole one on each."""
+    return _GradSum.apply(t, mesh, axis)

@@ -21,10 +21,12 @@ output back to ``[N, k, d]`` and adds the k picks in a fixed order. The
 JAX package's ``segment_sum`` computes the same function.
 
 :func:`moe_fwd_ep` is the JAX package's expert-parallel ``moe_fwd_ep``
-over a :class:`~repro_torch.launch.mesh.HostMesh`: tokens stay on their
-data shard, each model rank holds ``E / model`` experts and routes every
-token of its shard, and one ``all_reduce`` over the model axis combines
-the experts' outputs. It is forward only (the serving path).
+over a :class:`~repro_torch.launch.mesh.HostMesh` (or the dry run's
+:class:`~repro_torch.launch.mesh.MetaMesh`): tokens stay on their data
+shard, each model rank holds ``E / model`` experts and routes every token
+of its shard, and one ``all_reduce`` over the model axis combines the
+experts' outputs. It is differentiable in ``x`` and every parameter, with
+the JAX convention that every rank holds the global loss.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import batch_axes, data_shards
+from repro_torch.launch.mesh import grad_sum, sum_replicated
 from repro_torch.models.layers import normal, swiglu, swiglu_init
 
 Params = Dict[str, torch.Tensor]
@@ -152,26 +156,29 @@ def moe_fwd(p: Params, x: torch.Tensor, cfg: MoeConfig) -> Tuple[torch.Tensor, t
 
 def moe_fwd_ep(p: Params, x: torch.Tensor, cfg: MoeConfig, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE with local dispatch (twin of the JAX
-    ``moe_fwd_ep``) on this rank of a ``("data", "model")`` mesh.
+    ``moe_fwd_ep``) on this rank of a mesh with a ``model`` axis and its
+    batch axes (``data``, and ``pod`` on a multi-pod mesh).
 
     ``x [B_loc, T, D]`` is the rank's data shard of the tokens; ``p`` holds
     the whole router and shared expert and this model rank's experts
     ``[e0, e0 + E_loc)`` (``w_gate``/``w_up``/``w_down`` sliced on E, as
     :func:`~repro_torch.distributed.sharding.shard_tree` places them with
-    :func:`~repro_torch.distributed.sharding.ep_param_specs`). Every model rank routes all of the shard's tokens, with
-    the capacity of the local token count; assignments to other ranks'
-    experts sort last and drop here; one ``all_reduce`` over the model
-    axis sums the experts' outputs, then the shared expert is added.
-    ``aux`` is the per-shard loss averaged over the data axis, as the JAX
-    ``pmean``. On a (1, 1) mesh the result is :func:`moe_fwd`'s, bit for
-    bit.
+    :func:`~repro_torch.distributed.sharding.ep_param_specs`). Every model
+    rank routes all of the shard's tokens, with the capacity of the local
+    token count; assignments to other ranks' experts sort last and drop
+    here; one ``all_reduce`` over the model axis sums the experts' outputs,
+    then the shared expert is added. ``aux`` is the per-shard loss averaged
+    over the batch axes, as the JAX ``pmean``. On a (1, 1) mesh the result
+    is :func:`moe_fwd`'s, bit for bit, and so are the gradients.
 
-    Forward only: a call that would need a gradient raises (the EP
-    backward is queued, ROADMAP A10)."""
-    leaves = [x, *(v for t in p.values() for v in (t.values() if isinstance(t, dict) else (t,)))]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        raise NotImplementedError("moe_fwd_ep is forward only: its backward is queued "
-                                  "(ROADMAP A10, the EP backward); use moe_fwd to train")
+    The backward is Megatron's f/g pair (:func:`~repro_torch.launch.mesh.
+    grad_sum`, :func:`~repro_torch.launch.mesh.sum_replicated`): the
+    combine and the aux's mean pass their cotangents through, and the
+    experts' two inputs (the tokens as dispatched and the gate values) sum
+    theirs over the model axis. So the router's, the shared expert's and
+    ``x``'s gradients are whole and equal on every model rank, each rank's
+    expert gradients are those of its own experts, and a train step sums
+    every leaf's gradient over the batch axes only."""
     b, t, d = x.shape
     n = b * t
     xf = x.reshape(n, d)
@@ -180,12 +187,13 @@ def moe_fwd_ep(p: Params, x: torch.Tensor, cfg: MoeConfig, mesh) -> Tuple[torch.
         raise ValueError(f"{e_loc} local experts on {mesh.shape['model']} model ranks "
                          f"are not the config's {cfg.n_experts}")
     _, gate_vals, expert_idx, aux = route(p, xf, cfg)
-    aux = mesh.all_reduce(aux, axis="data") / mesh.shape["data"]
+    aux = sum_replicated(aux, mesh, batch_axes(mesh)) / data_shards(mesh)
 
     local_e = expert_idx.reshape(-1) - mesh.axis_index("model") * e_loc
     sort_key = torch.where((local_e >= 0) & (local_e < e_loc), local_e, e_loc)
-    y = _experts(p, xf, sort_key, gate_vals, e_loc, capacity(n, cfg), cfg.top_k)
-    y = mesh.all_reduce(y, axis="model")
+    y = _experts(p, grad_sum(xf, mesh, "model"), sort_key, grad_sum(gate_vals, mesh, "model"),
+                 e_loc, capacity(n, cfg), cfg.top_k)
+    y = sum_replicated(y, mesh, "model")
     if cfg.n_shared:
         y = y + swiglu(p["shared"], xf)
     return y.reshape(b, t, d), aux

@@ -15,13 +15,14 @@ The JAX package's ``remat``, ``unroll``, ``attn_flat_layout`` and
 have no twin here (the device decides the kernel). A config with ``moe`` set
 runs :func:`~repro_torch.models.moe.moe_fwd` in place of the dense SwiGLU,
 in prefill and in decode. The JAX package's ``moe_impl="ep_shardmap"``
-is a mesh passed to :func:`forward`: it then runs
+is a mesh passed to :func:`forward` or :func:`loss_fn`: it then runs
 :func:`~repro_torch.models.moe.moe_fwd_ep` on that
 :class:`~repro_torch.launch.mesh.HostMesh`, over this rank's data shard of
 the tokens and its parameters as placed by
 :func:`~repro_torch.distributed.sharding.shard_tree` with
 :func:`~repro_torch.distributed.sharding.ep_param_specs` (the routed
-experts split, the rest whole); decode stays dense, as in the JAX package.
+experts split, the rest whole), forward and backward; decode stays dense,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import batch_axes
+from repro_torch.launch.mesh import sum_replicated
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoeConfig, moe_fwd, moe_fwd_ep, moe_init
 
@@ -162,7 +165,8 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     With a ``mesh`` (this rank's ``HostMesh``) the MoE runs expert
     parallel: ``tokens`` is the rank's data shard and ``params`` its
     placement by ``ep_param_specs``; the logits are the shard's and ``aux``
-    is averaged over the data axis."""
+    is averaged over the data axis. It is differentiable there as on one
+    device (:func:`~repro_torch.models.moe.moe_fwd_ep`)."""
     if mesh is not None and not cfg.moe:
         raise ValueError("an expert-parallel forward (a mesh) needs an MoE config")
     x = params["embed"][tokens.long()]
@@ -176,18 +180,31 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     return logits, aux
 
 
-def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor],
+            mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy over ``mask``, plus the MoE aux loss:
     the training loss. On the card its gradient reaches the attention
-    weights through ``flash_attention``'s ``torch.autograd.Function``."""
-    logits, aux = forward(cfg, params, batch["tokens"])
+    weights through ``flash_attention``'s ``torch.autograd.Function``.
+
+    With a ``mesh``, ``batch`` is this rank's data shard and every rank
+    returns the global loss, as the JAX loss under a mesh: the masked sum
+    and the mask's count are summed over the batch axes
+    (:func:`~repro_torch.launch.mesh.sum_replicated`), and an MoE config
+    runs expert parallel (:func:`forward` with the mesh). Each rank's
+    gradient is then its share of the global one; a train step sums the
+    gradients over the batch axes. A dense config runs data parallel."""
+    logits, aux = forward(cfg, params, batch["tokens"], mesh=mesh if cfg.moe else None)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0) + aux
+    total, count = (nll * mask).sum(), mask.sum()
+    if mesh is not None:
+        both = sum_replicated(torch.stack([total, count]), mesh, batch_axes(mesh))
+        total, count = both[0], both[1]
+    return total / torch.clamp(count, min=1.0) + aux
 
 
 # ------------------------------------------------------------------- decode

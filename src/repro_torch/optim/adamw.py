@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -103,11 +103,16 @@ def update(
     grads: Tree,
     state: Tree,
     cfg: AdamWConfig,
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Tree, Tree, Dict[str, torch.Tensor]]:
+    """One AdamW step. ``grad_norm`` is the global norm the clipping uses,
+    for a rank that holds only a shard of some gradient leaves (the whole
+    gradient's norm, which the JAX update computes over global arrays);
+    ``None`` computes it from ``grads``."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg)(step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)

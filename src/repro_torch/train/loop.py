@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import batch_axes
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_map
 from repro_torch.train import checkpoint as ckpt
@@ -45,6 +46,25 @@ class TrainerConfig:
     log_every: int = 10
     grad_accum: int = 1
     bf16_grads: bool = False      # gradient compression before reduction
+
+
+def value_and_grad(loss_f: Callable[[Tree], torch.Tensor], params: Tree, mesh=None):
+    """``loss_f(params)`` and its gradient tree, as ``jax.value_and_grad``
+    gives them: a leaf the loss does not reach gets a zero gradient (and
+    AdamW still decays it). With a mesh (the loss then the global one, as
+    ``transformer.loss_fn(..., mesh=)`` gives it) each leaf's gradient is
+    summed over the batch axes; a leaf split over the model axis keeps this
+    rank's part."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss = loss_f(live)
+        grads = list(torch.autograd.grad(loss, list(adamw.leaves(live)), allow_unused=True,
+                                         materialize_grads=True))
+    if mesh is not None:
+        axes = batch_axes(mesh)
+        for i, g in enumerate(grads):
+            grads[i] = mesh.all_reduce(g, axis=axes)
+    return loss.detach(), adamw.tree_unflatten(live, grads)
 
 
 class Trainer:
@@ -71,19 +91,12 @@ class Trainer:
     def _one_grad(self, params: Tree, batch: Dict[str, torch.Tensor]):
         """The loss and the gradients of every parameter, in its dtype
         (float32 with ``bf16_grads``)."""
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            loss = self.loss_fn(live, batch)
-            # A leaf the loss does not reach gets a zero gradient, as under
-            # ``jax.value_and_grad``, and AdamW still decays it.
-            grads = torch.autograd.grad(loss, list(adamw.leaves(live)), allow_unused=True,
-                                        materialize_grads=True)
-        grads = adamw.tree_unflatten(live, grads)
+        loss, grads = value_and_grad(lambda p: self.loss_fn(p, batch), params)
         if self.cfg.bf16_grads:
             # gradient compression: bf16 for the cross-replica reduction,
             # float32 again before the update.
             grads = tree_map(lambda g: g.to(torch.bfloat16).to(torch.float32), grads)
-        return loss.detach(), grads
+        return loss, grads
 
     def _train_step(self, state: Tree, batch: Dict[str, torch.Tensor]):
         params = state["params"]
