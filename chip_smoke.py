@@ -152,7 +152,16 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     against the dense slices and the partial router and x gradients summed
     once against the dense ones, within one bf16 step; (c) the same cell
     built on ``meta`` by the registry, its output shapes equal to the
-    card's and its FLOPs counted there.
+    card's and its FLOPs counted there;
+16. after phase 15, repro-lint over the port (budget 10 s; past 1,100 s
+    by the script's clock (b) runs 5 slices): (a) ``run_lint`` over
+    ``src/repro_torch`` against its baseline, no new finding (host work);
+    (b) the rebuild sentinel at its defaults (filesystem at ``scale=0.002``,
+    20 slices of 5 %, insert rate 0.5, DiDiC every 6 slices) on an NCCL
+    group of one rank: the service and its engine's and replayer's
+    tensors on ``cuda``, the graph grown, slice 0 building the store's
+    engine and replayer, no rebuild after warm-up, steady state, no
+    finding; each slice's seconds and DiDiC table refreshes printed.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -167,7 +176,8 @@ phase 14's replays and runs (``frontier_gather``), and phase 13's EP
 forward and phase 15's EP training steps (``flash_attention``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
-Phase 11's path reaches no kernel (its sums are ``index_add_``). The
+Phase 11's path reaches no kernel (its sums are ``index_add_``), nor does
+phase 16's (a BFS replay and DiDiC's segment route). The
 launch counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
@@ -185,6 +195,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -3393,6 +3404,74 @@ def phase15(dev, smi, main_launches, t_start):
         + (", over" if out["phase_s"] > PHASE15_BUDGET_S else "") + (", cut" if cut else "") + ")")
 
 
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+PHASE16_BUDGET_S = 10.0
+PHASE16_CUT_AT_S = 1100.0   # past this on the script's clock (b) runs PHASE16_CUT_SLICES slices
+PHASE16_SLICES = 20         # the sentinel's default schedule: 20 slices of 5 %
+PHASE16_CUT_SLICES = 5
+
+
+def phase16(dev, smi, t_start):
+    """repro-lint over the port and its growth sentinel on the card (module
+    docstring, phase 16)."""
+    import torch.distributed as dist
+
+    import repro_torch.analysis as lint
+    from repro_torch.analysis import recompile
+
+    t_phase = time.perf_counter()
+    cut = t_phase - t_start > PHASE16_CUT_AT_S
+    slices = PHASE16_CUT_SLICES if cut else PHASE16_SLICES
+    out = {"phase": 16, "card": smi, "budget_s": PHASE16_BUDGET_S, "cut": cut}
+
+    t0 = time.perf_counter()
+    files = lint.iter_source_files(pathlib.Path(ROOT))
+    findings = lint.run_lint(pathlib.Path(ROOT))
+    baseline = lint.load_baseline(pathlib.Path(ROOT, "src", "repro_torch", "analysis", "baseline.json"))
+    new, suppressed, _stale = lint.split_by_baseline(findings, baseline)
+    out["lint"] = {"files": len(files), "rules": len(lint.RULES), "findings": len(findings),
+                   "new": [f.format() for f in new], "baseline_suppressed": len(suppressed),
+                   "part_s": time.perf_counter() - t0}
+    check(not new, f"phase 16 (a): repro-lint over {len(files)} files of src/repro_torch, "
+          f"{len(lint.RULES)} rules: {len(new)} new findings against the baseline "
+          f"({len(suppressed)} baselined)")
+
+    t0 = time.perf_counter()
+    _open_nccl_world1()
+    try:
+        check(dist.get_backend() == "nccl", "phase 16 (b): the sentinel on an NCCL group of one rank")
+        report = recompile.run_growth_sentinel(slices=slices, device=dev)
+    finally:
+        dist.destroy_process_group()
+    per = report["per_slice"]
+    sentinel_findings = recompile.findings_from_report(report, pathlib.Path(ROOT))
+    out["sentinel"] = {k: report[k] for k in ("schedule", "service_device", "tensor_devices", "warmup_seconds",
+                                              "compactions", "total_rebuilds_after_warmup", "total_refreshes",
+                                              "steady_state", "retraces")}
+    out["sentinel"].update(per_slice=per, warmup_builds=[e["name"] for e in report["warmup_builds"]],
+                           part_s=time.perf_counter() - t0)
+    check(report["service_device"].startswith("cuda") and report["tensor_devices"]
+          and all(d.startswith("cuda") for d in report["tensor_devices"]),
+          f"phase 16 (b): the service on {report['service_device']}, its engine's and replayer's "
+          f"tensors on {report['tensor_devices']}")
+    check(per[-1]["n_nodes"] > per[0]["n_nodes"],
+          f"phase 16 (b): the graph grew over {slices} slices ({per[0]['n_nodes']} -> {per[-1]['n_nodes']} vertices)")
+    check(per[0]["rebuilds"] > 0, f"phase 16 (b): slice 0 built {per[0]['rebuilds']} objects "
+          f"(warm-up: {', '.join(out['sentinel']['warmup_builds'])})")
+    check(report["total_rebuilds_after_warmup"] == 0 and report["steady_state"] and not sentinel_findings,
+          f"phase 16 (b): {report['total_rebuilds_after_warmup']} rebuilds after warm-up, steady state "
+          f"{report['steady_state']}, {len(sentinel_findings)} findings")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    say("phase 16: sentinel seconds a slice " + ", ".join(f"{s['seconds']:.3f}" for s in per)
+        + "; refreshes a slice " + ", ".join(str(s["refreshes"]) for s in per)
+        + f"; lint {out['lint']['part_s']:.2f} s, sentinel {out['sentinel']['part_s']:.2f} s; "
+        f"{out['phase_s']:.1f} s (budget {PHASE16_BUDGET_S:.0f} s"
+        + (", over" if out["phase_s"] > PHASE16_BUDGET_S else "") + (", cut" if cut else "") + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -3476,6 +3555,8 @@ def main() -> int:
     say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
     phase15(dev, smi, main_launches, t_start)
     say(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+    phase16(dev, smi, t_start)
+    say(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "

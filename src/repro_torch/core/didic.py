@@ -62,7 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import builds, resolve_device
 from repro_torch.graphs.structure import Graph
 
 __all__ = ["DidicConfig", "DidicState", "didic_partition", "didic_refine", "make_spmm"]
@@ -283,6 +283,7 @@ def _overlay_tables_for(graph: Graph, device) -> Tuple[SegmentSpmm, torch.Tensor
     store.caches.pop(key, None)
     ent = (weakref.ref(graph), extents, _overlay_tables(graph, device))
     store.caches[key] = ent
+    builds.note_refresh("didic_tables", extents)
     return ent[2]
 
 

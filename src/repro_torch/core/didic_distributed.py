@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import builds
 from repro_torch.core import partitioners
 from repro_torch.core.didic import (
     _INIT_LOAD,
@@ -167,6 +168,7 @@ class _CapacityMeshProgram:
         self._graph = None
         self.extents: Optional[Tuple[int, int]] = None
         self.spmm = self.degc = self.live = None
+        builds.note_build("mesh_program", (store.n_cap, store.e_cap))
 
     def adopt(self, graph: Graph) -> None:
         """Rebuild the tables for ``graph`` (nothing to do when it is the
@@ -198,6 +200,7 @@ class _CapacityMeshProgram:
         self.live = torch.as_tensor(live[block], device=mesh.device)
         self._graph = weakref.ref(graph)
         self.extents = extents
+        builds.note_refresh("mesh_program_tables", extents)
 
 
 def _capacity_mesh_program(graph: Graph, mesh, data_axes: Tuple[str, ...]) -> _CapacityMeshProgram:

@@ -70,7 +70,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import builds, resolve_device
 from repro_torch.core import traffic as _t
 from repro_torch.graphs.structure import Graph, padded_neighbors
 from repro_torch.kernels.frontier import frontier_relax, spill_tail
@@ -293,6 +293,7 @@ class BatchedTrafficEngine:
         self._load_structure(graph)
         if self.kind == "sssp":
             self._device_h_ok = self._check_device_h()
+        builds.note_build(f"engine:{pattern}", builds.geometry(graph))
 
     @property
     def graph(self) -> Optional[Graph]:

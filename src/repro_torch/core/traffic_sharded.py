@@ -64,6 +64,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import builds
 from repro_torch.core.traffic_batched import _sssp_solve, get_engine, resolve_max_expansions
 from repro_torch.distributed.counters import (
     CounterAccumulator,
@@ -218,6 +219,7 @@ class ShardedTrafficReplayer:
         self.last_redo_ops = 0  # ops solved on the whole graph by the last replay
         self._scatter_psum = make_scatter_psum(mesh, self._row_cap, self.data_axes)
         self._deg_table: Optional[torch.Tensor] = None
+        builds.note_build(f"replayer:{pattern}", builds.geometry(graph))
 
     @property
     def graph(self) -> Optional[Graph]:

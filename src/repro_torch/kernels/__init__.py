@@ -27,6 +27,8 @@ import shutil
 import subprocess
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import builds
+
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS: Tuple[str, ...] = (
@@ -99,6 +101,7 @@ class CudaKernel:
         job = self._start_build()
         if job is not None:
             self._finish_build(job)
+        builds.note_build(f"kernel:{self.name}", (self.library_path().stem,))
 
     @property
     def lib(self) -> ctypes.CDLL:

@@ -423,7 +423,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = PaperExperimentConfig(scale=args.scale, didic_iterations=args.didic_iters)
     bench = PaperBench(cfg, device=args.device)
-    t0 = time.time()
+    t0 = time.perf_counter()
     print("name,value,derived", flush=True)
     if "all" in want:
         for r in bench.all_tables():
@@ -433,7 +433,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for key in want:
             for r in tables[key]():
                 print(r.csv(), flush=True)
-    print(f"_total_wall_s,{time.time() - t0:.1f},")
+    print(f"_total_wall_s,{time.perf_counter() - t0:.1f},")
 
 
 if __name__ == "__main__":
