@@ -44,11 +44,11 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    first growth slice attaches a delta-overlay store, every grown graph is
    adopted by the store's engine and DiDiC tables, each adoption and table
    re-pad timed beside a fresh engine's build) and the maintenance cost;
-   GIS replays a 2,000-op log here;
+   GIS replays a 500-op log here;
 7. the hot-vertex placement and the paper's tables, run after phase 6:
    (a) at ``scale=1.0``, k=4, from phase 2's DiDiC maps, a service with an
    exception table of 128 replays each dataset's log (GIS: phase 6's
-   2,000 ops), re-selects its hot vertices (``refresh_placement``) and
+   500 ops), re-selects its hot vertices (``refresh_placement``) and
    replays again, beside capacities 8 and 32: totals conserved, T_G % never
    higher, and on GIS the masked replay equal to the scalar oracle on 64
    ops; (b) ``repro_torch.skew_smoke`` at the JAX package's parameters,
@@ -56,14 +56,14 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    DiDiC 20 iterations: every table's row names, finite values, and DiDiC
    below random on every dataset;
 8. the fault layer, run after phase 7 at ``scale=1.0`` from phase 2's
-   DiDiC maps and states: (a) on each dataset, ``run_with_recovery`` (5
+   DiDiC maps and states: (a) on each dataset, ``run_with_recovery`` (4
    slices of 5 %, 20 % inserts, maintenance every 3rd slice, snapshots
-   every 2nd round-tripped through their bytes) under a pre-commit crash,
+   every 3rd round-tripped through their bytes) under a pre-commit crash,
    two maintenance timeouts and a post-commit crash, bit-exact against an
    uninterrupted run, with 2 recoveries, 2 retries and a peak device memory
    within 10 % of the uninterrupted run's (both legs grow through one
    store); (b) the online server on GIS
-   (48 ``gis_short``/``gis_long`` requests under each arrival process, 8-slot
+   (40 ``gis_short``/``gis_long`` requests under each arrival process, 8-slot
    batches, a 64-op queue, background DiDiC every 8 ticks, SLOs of 8 and 16
    ticks), a clean leg and a leg with an admit and a commit crash, equal to
    each other and to the offline replay of their epochs; (c) the same
@@ -87,8 +87,8 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     port's ``Trainer`` for 5 steps on one 4,096-token sequence repeated,
     then one step split into forward, backward and update by CUDA events,
     with every gradient finite and wq, wk, wv non-zero in every layer;
-    (b) ``launch.train`` for the five LM archs and DIN, 40 steps with a
-    checkpoint directory under ``build/`` and a fault at step 20, on the
+    (b) ``launch.train`` for the five LM archs and DIN, 20 steps with a
+    checkpoint directory under ``build/`` and a fault at step 10, on the
     card and on the CPU, whose losses the card's must equal;
 11. after phase 10, the GNNs and MACE: (a) gcn-cora, graphsage-reddit,
     meshgraphnet and mace at their ``FULL`` widths, random weights drawn on
@@ -104,7 +104,7 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     group of one rank on the card, from phase 2's DiDiC maps at
     ``scale=1.0`` (the graphs kept as host arrays): cold sharded replays of
     filesystem's and Twitter's 10,000-op logs bit-equal to the batched
-    results phase 2 held, and of the first 1,000 ops of GIS's phase-6 log
+    results phase 2 held, and of GIS's phase-6 log (500 ops)
     (per-op counters equal to phase 6's, all four to a batched replay),
     through ``frontier_gather``; on GIS the resident fold against the
     random map and one structural slice with a partial redo, bit-equal to
@@ -114,14 +114,18 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     host's; two mesh-runtime slices on Twitter against the meshless
     runtime;
 13. after phase 12, the model side of multi-device on an NCCL group of one
-    rank, a ``("data", "model")`` mesh of (1, 1): (a) deepseek-moe-16b at
-    full width and depth (random bf16 weights), placed by ``shard_tree``
-    with ``ep_param_specs``, its expert-parallel forward over 4,096 tokens
-    bit-equal to the dense forward (28 ``flash_attention`` launches on
-    ``wgmma``), and each layer's MoE played as 4 model ranks in turn (16
-    experts each), their parts summed against ``moe_fwd``; (b) the online server on GIS at ``scale=1.0`` on a mesh
+    rank, a ``("data", "model")`` mesh of (1, 1) (past 1,050 s by the
+    script's clock it cuts its own depth: (a)'s ranks play the first and
+    the last layer, (c) runs 20 steps): (a) deepseek-moe-16b at full width
+    and depth (random bf16 weights), placed by ``shard_tree`` with
+    ``lm_param_specs`` (the JAX layout), its forward on the mesh (attention
+    tensor parallel, the MoE expert parallel) over 4,096 tokens bit-equal to
+    the dense forward (28 ``flash_attention`` launches on ``wgmma``), and
+    each layer's MoE played as 4 model ranks in turn (16 experts and a
+    quarter of the shared expert's columns each), their parts summed
+    against ``moe_fwd``; (b) the online server on GIS at ``scale=1.0`` on a mesh
     service (``maintenance="shared"``) from phase 2's DiDiC map, a clean and
-    a crash leg (admit and commit crashes, shard 0 failed for 4 ticks) of 48
+    a crash leg (admit and commit crashes, shard 0 failed for 4 ticks) of 40
     requests, each equal to the offline replay of its epochs and to the
     other, with no resident state left; (c) the distributed GCN twin on
     GIS at ``scale=1.0`` folded onto the one shard, 60 steps, its first 5
@@ -161,7 +165,27 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     group of one rank: the service and its engine's and replayer's
     tensors on ``cuda``, the graph grown, slice 0 building the store's
     engine and replayer, no rebuild after warm-up, steady state, no
-    finding; each slice's seconds and DiDiC table refreshes printed.
+    finding; each slice's seconds and DiDiC table refreshes printed;
+17. after phase 16, the JAX layout's tensor-parallel LM (budget 30 s; past
+    1,050 s by the script's clock (a) trains 1 layer): (a) granite-3-8b's
+    ``train_4k`` step from the registry at full width, 2 layers, one
+    4,096-token sequence, on an NCCL group of one rank, a (1, 1) mesh
+    (vocabulary-parallel embedding and cross-entropy, tensor-parallel
+    attention and SwiGLU, remat as the JAX config sets it): its loss, every
+    gradient and the updated parameters bit-equal to the dense step, the
+    gradients bit-equal to the step without remat, one ``wgmma``
+    ``flash_attention`` launch a layer in the forward and one in remat's
+    recompute; (b) one granite layer as 4 model ranks played in turn (8 q
+    heads, 2 kv heads, 3,200 FFN columns and 12,320 vocabulary rows a
+    rank), every collective replayed from the ranks' parts: the output and
+    the gradients in x and every shard against the dense layer, the
+    embedding bit-equal, the vocabulary-parallel cross-entropy against the
+    dense loss; (c) yi-34b's attention as 16 model ranks (3.5 q heads of
+    ``wo`` rows a rank, q gathered), 16 ``wgmma`` launches, the summed parts
+    against the dense attention; (d) granite's decode attention against a
+    32,768-position cache split over 16 model ranks (split-K, log-sum-exp
+    combine) against the dense ``decode_attention``. Phase 0 also times a
+    fixed host-only workload, to read the script's time against.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
 phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
@@ -172,8 +196,9 @@ and phase 10's trainer runs on the card
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables, phase 8's uninterrupted, recovered and
 online runs, phase 12's sharded GIS replays, phase 13's online runs and
-phase 14's replays and runs (``frontier_gather``), and phase 13's EP
-forward and phase 15's EP training steps (``flash_attention``);
+phase 14's replays and runs (``frontier_gather``), and phase 13's mesh
+forward, phase 15's EP training steps and phase 17's TP training step and
+model ranks' attention (``flash_attention``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``), nor does
@@ -287,7 +312,22 @@ def phase0():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {k.name}: {line.strip()}")
     say("phase 0: kernels of this slice: " + ", ".join(sorted(kernels.KERNELS)))
+    say(f"phase 0: host speed: {_host_workload_s():.4f} s for a fixed host-only workload (numpy: 3 sorts "
+        f"of 2^22 float64, 2,000,000 Python loop steps); a script time is read against it")
     return smi
+
+
+def _host_workload_s() -> float:
+    """Seconds of a fixed host-only workload: numpy sorts and a Python loop,
+    the two kinds of host work that pace the replays (no card, no torch)."""
+    a = np.random.default_rng(0).random(1 << 22)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        np.sort(a)
+    acc = 0
+    for i in range(2_000_000):
+        acc += i & 7
+    return time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -629,7 +669,7 @@ def phase3(dev, main_launches):
 # ---------------------------------------------------------------------------
 # phase 6
 # ---------------------------------------------------------------------------
-N_OPS_GIS_DYNAMIC = 2_000       # phase 6's GIS log (the GIS replay is host-paced)
+N_OPS_GIS_DYNAMIC = 500         # phase 6's GIS log (the GIS replay is host-paced; cut from 2,000 for time)
 INSERT_LEVELS = (0.05, 0.25)    # two of the paper's five dynamism levels (§7.4)
 
 
@@ -1049,11 +1089,15 @@ def phase7_tables(dev, main_launches):
 # ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
-# Cut for the script's time (PERF.md §4): 5 slices, not 6 (the fewest the
-# fault plan needs), and 48 online requests, not 256 (enough ticks for a
-# background DiDiC round to commit, so the legs serve more than one epoch).
-RECOVERY_RUN = dict(n_slices=5, amount=0.05, maintain_every=3, insert_rate=0.2)
-ONLINE_REQUESTS = 48
+# Cut for the script's time (PERF.md §4): 4 slices, not 6 (the fewest the
+# fault plan needs: its post-commit crash at slice 3, snapshots every 3rd
+# slice, so both recoveries, the journal's rollback and replay and the two
+# maintenance retries all occur), and 40 online requests, not 256 (10 ticks
+# of uniform arrivals: enough for a background DiDiC round, every 8 ticks, to
+# commit, so the legs serve more than one epoch).
+RECOVERY_RUN = dict(n_slices=4, amount=0.05, maintain_every=3, insert_rate=0.2)
+RECOVERY_SNAPSHOT_EVERY = 3
+ONLINE_REQUESTS = 40
 GIS_CLASSES = ("gis_short", "gis_long")
 SLO = {"gis_short": 8, "gis_long": 16}
 
@@ -1062,7 +1106,7 @@ def _recovery_plan():
     from repro_torch.core.fault import FaultPlan
 
     return (FaultPlan().crash(1, site="apply:pre_commit").timeout_maintenance(2, times=2)
-            .crash(4, site="apply:post_commit"))
+            .crash(3, site="apply:post_commit"))
 
 
 def _online_plan():
@@ -1085,7 +1129,7 @@ def _served_equal(a, b) -> bool:
 
 def phase8_recovery(name, graph, start, dev, main_launches):
     """Crash recovery on one dataset at the paper's scale, from phase 2's
-    DiDiC map and state: ``run_with_recovery`` (snapshots every 2 slices,
+    DiDiC map and state: ``run_with_recovery`` (snapshots every 3 slices,
     each round-tripped through its bytes) under a pre-commit crash, two
     maintenance timeouts and a post-commit crash, against an uninterrupted
     run of the same slices. Both runs are main-path runs."""
@@ -1122,7 +1166,7 @@ def phase8_recovery(name, graph, start, dev, main_launches):
     torch.cuda.reset_peak_memory_stats()
     ((out, stats), rec_s), counts = _counted(lambda: once(lambda: run_with_recovery(
         make, graph, ops, fault_plan=_recovery_plan(), retry_policy=RetryPolicy(),
-        snapshot_every=2, on_slice=lambda i, r: got.__setitem__(i, r), **RECOVERY_RUN)),
+        snapshot_every=RECOVERY_SNAPSHOT_EVERY, on_slice=lambda i, r: got.__setitem__(i, r), **RECOVERY_RUN)),
         main_launches)
     rec_peak = torch.cuda.max_memory_allocated()
     fg += counts["frontier_gather"]
@@ -1885,17 +1929,19 @@ TRAIN_STEPS = 5
 # 12-layer model rose after the first step, so did it at 1e-4 and 3e-5;
 # 1e-5 lowers it every step on the repeated batch.
 TRAIN_LR = 1e-5
-LAUNCH_STEPS = 40               # phase 10b: steps of each training launcher
-LAUNCH_FAULT_STEP = 20
+LAUNCH_STEPS = 20               # phase 10b: steps of each training launcher (cut from 40 for time)
+LAUNCH_FAULT_STEP = 10
 LAUNCH_ARCHS = ("granite-3-8b", "yi-34b", "deepseek-coder-33b", "deepseek-moe-16b", "qwen3-moe-30b-a3b", "din")
 LOSS_RTOL = 1e-5                # tests/test_torch_train.py LOSS_RTOL: the trainer against the JAX trainer
 MOE_LOSS_RTOL = 1e-2            # tests/test_torch_train.py MOE_LOSS_RTOL: the same with top-k routing
 
 
 def _granite_train_cfg(depth):
+    """granite-3-8b at ``depth`` layers, remat off: the step phase 10 has
+    always measured (no launch in the backward; phase 17 runs remat)."""
     from repro_torch.configs.granite_3_8b import FULL
 
-    return dataclasses.replace(FULL, name=f"granite-3-8b-{depth}L", n_layers=depth)
+    return dataclasses.replace(FULL, name=f"granite-3-8b-{depth}L", n_layers=depth, remat=False)
 
 
 def _granite_trainer(cfg, dev, steps):
@@ -2354,8 +2400,9 @@ def phase11_launchers(dev, smi):
 # phase 12
 # ---------------------------------------------------------------------------
 PHASE12_BUDGET_S = 60.0
-# Phase 12's GIS log: the first 1,000 of phase 6's 2,000 ops. Cut because the
-# script passed 1,050 s with the 2,000 (PERF.md §4); never cut graph scale.
+# Phase 12's GIS log: at most the first 1,000 ops of phase 6's log (all of
+# its 500). Cut because the script passed 1,050 s (PERF.md §4); never cut
+# graph scale.
 PHASE12_GIS_OPS = 1_000
 PHASE12_SLICE = 0.0005  # the structural slice: a partial redo inside the budget
 
@@ -2576,6 +2623,8 @@ def phase12(held, dev, smi, main_launches):
 # ---------------------------------------------------------------------------
 PHASE13_BUDGET_S = 60.0
 PHASE13_TOKENS = 4_096          # the EP forward's sequence, as phase 9's
+PHASE13_CUT_AT_S = 1050.0       # past this on the script's clock, phase 13 cuts its own depth
+PHASE13_CUT_GCN_STEPS = 20      # (c)'s steps after the cut ((a)'s ranks: the first and last layer)
 EP_MODEL_RANKS = 4              # 13a: the model ranks one card plays in turn
 EP_RANKS_ATOL_STEPS = 4         # their summed parts against moe_fwd: bf16 steps of the largest entry
 GCN_STEPS = 60                  # the JAX example's steps
@@ -2594,48 +2643,107 @@ def _phase13_lm_config():
 class _ModelRankView:
     """Model rank ``q`` of a ``(1, model)`` mesh, played on this one card:
     the shape and axis index such a rank sees, so ``shard_tree`` gives it
-    its experts and ``moe_fwd_ep`` its dispatch. The data axis has one
-    rank, so a reduce over it is the identity; the model-axis reduce keeps
-    the rank's part in ``parts`` (the caller sums the ranks' parts, as the
-    ``all_reduce`` would) and passes it on."""
+    its shards and the model code its part. The data axis has one rank, so
+    a collective over it is the identity. Each collective along the model
+    axis is recorded in ``calls`` (kind, op, the rank's tensor) and takes
+    its result from ``known``, in call order: for an ``all_reduce`` the
+    ranks' reduction, for an ``all_gather`` every rank's part (computed
+    from the whole by the caller, or replayed by :func:`_play_model_ranks`),
+    for a ``reduce_scatter`` the ranks' sum, of which it returns this
+    rank's block. Past the known results an ``all_reduce`` keeps the rank's
+    part in ``parts`` and passes it on (the caller sums the ranks' parts, as
+    the ``all_reduce`` would), an ``all_gather`` puts the rank's own part in
+    every place and a ``reduce_scatter`` returns the rank's own block."""
 
-    def __init__(self, q, model):
+    def __init__(self, q, model, known=()):
         self.q, self.shape, self.parts = q, {"data": 1, "model": model}, []
+        self.known, self.calls = list(known), []
 
     def axis_index(self, axes):
         return self.q if "model" in ((axes,) if isinstance(axes, str) else tuple(axes)) else 0
 
+    def _meet(self, kind, t, op, axis):
+        """The known result of this model-axis call (None: not known yet);
+        ``False`` for a call along the data axis alone."""
+        if "model" not in ((axis,) if isinstance(axis, str) else tuple(axis or ("data", "model"))):
+            return False
+        i = len(self.calls)
+        self.calls.append((kind, op, t.detach()))
+        return self.known[i] if i < len(self.known) else None
+
     def all_reduce(self, t, op=None, axis=None):
-        if axis == "model":
-            self.parts.append(t)
-        return t
+        r = self._meet("all_reduce", t, op, axis)
+        if r is None:
+            # detached: a part holding its autograd graph would close a cycle
+            # through a node that keeps this view, which no collector frees
+            self.parts.append(t.detach())
+        return t if r is None or r is False else r.clone()
+
+    def all_gather(self, t, axis=None):
+        r = self._meet("all_gather", t, None, axis)
+        if r is False:
+            return [t]
+        return [t] * self.shape["model"] if r is None else [p.clone() for p in r]
+
+    def reduce_scatter(self, t, axis=None):
+        r = self._meet("reduce_scatter", t, None, axis)
+        if r is False:
+            return t
+        return (t if r is None else r).chunk(self.shape["model"], dim=0)[self.q].clone()
 
 
-def _phase13_ep_ranks(cfg, params, dev):
-    """Each layer's MoE as ``EP_MODEL_RANKS`` model ranks compute it, one
-    after another on this card: rank q holds experts ``[16q, 16q + 16)``
-    (placed by ``shard_tree`` with ``ep_param_specs``), routes all 4,096
-    tokens, drops the assignments to other ranks' experts and runs its
-    experts; the ranks' parts summed plus the shared expert against
-    ``moe_fwd`` on the whole layer. Inputs: seeded unit normals, as the
-    RMS-normed hidden state. Returns the largest gap over the layers, the
-    largest entry it is relative to and whether every aux was the dense
-    one bit for bit."""
-    from repro_torch.distributed.sharding import ep_param_specs, shard_tree
+def _play_model_ranks(model, fn):
+    """``fn(view)`` for each of ``model`` ranks in turn, replayed until every
+    model-axis collective's result is known: each pass runs every rank to
+    its end, then the first collective whose result was not known gets it
+    from the ranks' parts (summed in rank order in their type, as a ring
+    adds them, or their maximum, or the list of them). Returns the last
+    pass's outputs (each rank's, with every collective as the mesh would
+    give it) and the number of passes."""
+    import functools
+
+    import torch.distributed as dist
+
+    known = []
+    while True:
+        views = [_ModelRankView(q, model, known) for q in range(model)]
+        outs = [fn(v) for v in views]
+        i = len(known)
+        if len(views[0].calls) == i:
+            return outs, i + 1
+        kind, op, _ = views[0].calls[i]
+        parts = [v.calls[i][2] for v in views]
+        if kind == "all_gather":
+            known.append(parts)
+        else:
+            known.append(functools.reduce(torch.maximum if op == dist.ReduceOp.MAX else torch.add, parts))
+        del views, outs
+
+
+def _phase13_ep_ranks(cfg, params, dev, layers):
+    """Each of ``layers``' MoE as ``EP_MODEL_RANKS`` model ranks compute it,
+    one after another on this card: rank q holds experts ``[16q, 16q + 16)``
+    and its quarter of the shared expert's columns (placed by ``shard_tree``
+    with ``lm_param_specs``), routes all 4,096 tokens, drops the assignments
+    to other ranks' experts and runs its experts and its shared-expert
+    partial; the ranks' parts summed against ``moe_fwd`` on the whole layer.
+    Inputs: seeded unit normals, as the RMS-normed hidden state. Returns the
+    largest gap over the layers, the largest entry it is relative to and
+    whether every aux was the dense one bit for bit."""
+    from repro_torch.distributed.sharding import lm_param_specs, shard_tree
     from repro_torch.models import transformer as tf
-    from repro_torch.models.layers import swiglu
     from repro_torch.models.moe import moe_fwd, moe_fwd_ep
 
     gen = torch.Generator(device=dev).manual_seed(1)
     worst, scale, aux_equal, close = 0.0, 0.0, True, True
-    for i in range(cfg.n_layers):
+    for i in layers:
         lp = tf.layer_params(params, i)["moe"]
         x = torch.randn((1, PHASE13_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
         want, want_aux = moe_fwd(lp, x, cfg.moe)
         parts = []
         for q in range(EP_MODEL_RANKS):
             view = _ModelRankView(q, EP_MODEL_RANKS)
-            mine = shard_tree({"moe": lp}, ep_param_specs({"layers": {"moe": lp}})["layers"], view)["moe"]
+            mine = shard_tree({"moe": lp}, lm_param_specs({"layers": {"moe": lp}})["layers"], view)["moe"]
             _, aux = moe_fwd_ep(mine, x, cfg.moe, view)
             aux_equal = aux_equal and torch.equal(aux, want_aux)
             parts += view.parts
@@ -2643,28 +2751,29 @@ def _phase13_ep_ranks(cfg, params, dev):
         y = parts[0]
         for part in parts[1:]:
             y = y + part
-        y = (y + swiglu(lp["shared"], x.reshape(-1, cfg.d_model))).reshape(want.shape)
+        y = y.reshape(want.shape)
         gap, top = float((y.float() - want.float()).abs().max()), float(want.float().abs().max())
         close = close and gap <= EP_RANKS_ATOL_STEPS * 2.0 ** -7 * top
         worst, scale = max(worst, gap), max(scale, top)
     return close, worst, scale, aux_equal
 
 
-def _phase13_moe_ep(mesh, dev, main_launches):
-    """(a) The EP forward of deepseek-moe-16b on the (1, 1) mesh, its
-    parameters placed by ``shard_tree`` with ``ep_param_specs``, against
-    the dense forward on the same parameters: bit-equal logits and aux.
-    The EP forward is the main-path run (28 ``flash_attention`` launches).
-    Then each layer's MoE split over four model ranks
-    (:func:`_phase13_ep_ranks`)."""
+def _phase13_moe_ep(mesh, dev, main_launches, cut):
+    """(a) The forward of deepseek-moe-16b on the (1, 1) mesh (attention
+    tensor parallel, the MoE expert parallel), its parameters placed by
+    ``shard_tree`` with ``lm_param_specs``, against the dense forward on the
+    same parameters: bit-equal logits and aux. The mesh forward is the
+    main-path run (28 ``flash_attention`` launches). Then each layer's MoE
+    split over four model ranks (:func:`_phase13_ep_ranks`; past the cut,
+    the first and the last layer)."""
     from repro_torch import kernels
     from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
-    from repro_torch.distributed.sharding import ep_param_specs, lm_batch_spec, shard_tree
+    from repro_torch.distributed.sharding import lm_batch_spec, lm_param_specs, shard_tree
     from repro_torch.models import transformer as tf
 
     cfg = _phase13_lm_config()
     params, init_s = once(lambda: tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
-    placed = shard_tree(params, ep_param_specs(params), mesh)
+    placed = shard_tree(params, lm_param_specs(params), mesh)
     check(all(a is b for a, b in zip(_leaves(params), _leaves(placed))),
           f"phase 13: {cfg.name} placed by shard_tree on the (1, 1) mesh: every leaf is the "
           f"drawn one (no copy)")
@@ -2686,18 +2795,20 @@ def _phase13_moe_ep(mesh, dev, main_launches):
               f"one a layer, all on wgmma ({routes})")
         del logits, dense
         _, fwd2_s = once(lambda: tf.forward(cfg, placed, local, mesh=mesh))
-        (ranks, ranks_s) = once(lambda: _phase13_ep_ranks(cfg, params, dev))
+        layers = (0, cfg.n_layers - 1) if cut else range(cfg.n_layers)
+        (ranks, ranks_s) = once(lambda: _phase13_ep_ranks(cfg, params, dev, layers))
     close, gap, top, aux_equal = ranks
     check(close and aux_equal,
-          f"phase 13: every layer's MoE on {EP_MODEL_RANKS} model ranks (each its "
-          f"{cfg.moe.n_experts // EP_MODEL_RANKS} experts, the others' assignments dropped), the parts "
+          f"phase 13: {len(layers)} layers' MoE on {EP_MODEL_RANKS} model ranks (each its "
+          f"{cfg.moe.n_experts // EP_MODEL_RANKS} experts and a quarter of the shared expert, the others' "
+          f"assignments dropped), the parts "
           f"summed == moe_fwd within {EP_RANKS_ATOL_STEPS} bfloat16 steps of the largest entry "
           f"(largest gap {gap:.4g} of {top:.4g}); every rank's aux == the dense aux, bit for bit")
     rec = {"model": cfg.name, "layers": cfg.n_layers, "tokens": PHASE13_TOKENS, "init_s": init_s,
            "forward_first_s": fwd_s, "forward_s": fwd2_s, "tokens_per_s": PHASE13_TOKENS / fwd2_s,
            "peak_device_bytes": peak, "flash_attention_launches": counts["flash_attention"],
-           "ep_ranks": {"model_ranks": EP_MODEL_RANKS, "max_abs_gap": gap, "max_abs_dense": top,
-                        "seconds": ranks_s}}
+           "ep_ranks": {"model_ranks": EP_MODEL_RANKS, "layers": len(layers), "max_abs_gap": gap,
+                        "max_abs_dense": top, "seconds": ranks_s}}
     say(f"phase 13: {cfg.name} EP forward {fwd2_s:.4f} s ({PHASE13_TOKENS / fwd2_s:.0f} tokens/s), "
         f"peak {peak / 1e9:.2f} GB; {EP_MODEL_RANKS} model ranks {ranks_s:.2f} s")
     return rec
@@ -2741,9 +2852,9 @@ def _phase13_online(held, dev, main_launches):
     return rec
 
 
-def _phase13_gcn(held, mesh, dev):
+def _phase13_gcn(held, mesh, dev, steps):
     """(c) The distributed GCN twin at world size 1 on GIS at ``scale=1.0``,
-    phase 2's DiDiC map folded onto the one shard, 60 steps; the halo bytes
+    phase 2's DiDiC map folded onto the one shard, ``steps`` steps; the halo bytes
     of the random and DiDiC placements at 4 shards (host numbers). Returns
     the record and the initial parameters (drawn on the CPU)."""
     from repro_torch import distributed_gnn_training as twin
@@ -2758,48 +2869,50 @@ def _phase13_gcn(held, mesh, dev):
           f"{table['random'][0]:.0f} (edge cut {table['didic'][1]:.4f} against {table['random'][1]:.4f})")
     params0 = gnn.gcn_init(twin.CFG, torch.Generator().manual_seed(0), device="cpu")
     torch.cuda.reset_peak_memory_stats()
-    run = twin.train(g, parts, mesh, steps=GCN_STEPS, params={k: v.to(dev) for k, v in params0.items()})
+    run = twin.train(g, parts, mesh, steps=steps, params={k: v.to(dev) for k, v in params0.items()})
     peak = torch.cuda.max_memory_allocated()
     losses = run.losses
-    check(len(losses) == GCN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+    check(len(losses) == steps and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"phase 13: distributed GCN on GIS ({g.n_nodes:,} nodes, {run.layout.n_shards} shard), "
-          f"{GCN_STEPS} steps: losses finite, {losses[0]:.4f} -> {losses[-1]:.4f}")
-    rec = {"nodes": g.n_nodes, "shards": run.layout.n_shards, "steps": GCN_STEPS,
+          f"{steps} steps: losses finite, {losses[0]:.4f} -> {losses[-1]:.4f}")
+    rec = {"nodes": g.n_nodes, "shards": run.layout.n_shards, "steps": steps,
            "halo_bytes_4_shards": {k: v[0] for k, v in table.items()},
            "edge_cut_4_shards": {k: v[1] for k, v in table.items()},
-           "losses": losses, "train_s": run.seconds, "step_ms": run.seconds / GCN_STEPS * 1e3,
+           "losses": losses, "train_s": run.seconds, "step_ms": run.seconds / steps * 1e3,
            "evals": run.evals, "peak_device_bytes": peak}
     say(f"phase 13: distributed GCN {rec['step_ms']:.2f} ms a step, peak {peak / 1e9:.3f} GB")
     return rec, params0
 
 
-def phase13(held, dev, smi, main_launches):
+def phase13(held, dev, smi, main_launches, t_start):
     """The model side of multi-device on an NCCL group of one rank, a
-    ``("data", "model")`` mesh of (1, 1): (a) deepseek-moe-16b's EP forward
-    against its dense forward; (b) the online server on a GIS mesh service;
-    (c) the distributed GCN twin on GIS, then its first losses against the
-    same run on the CPU (a gloo group of one rank)."""
+    ``("data", "model")`` mesh of (1, 1): (a) deepseek-moe-16b's forward on
+    the mesh against its dense forward; (b) the online server on a GIS mesh
+    service; (c) the distributed GCN twin on GIS, then its first losses
+    against the same run on the CPU (a gloo group of one rank). Past
+    ``PHASE13_CUT_AT_S`` on the script's clock it cuts its own depth."""
     import torch.distributed as dist
 
     from repro_torch import distributed_gnn_training as twin
     from repro_torch.launch.mesh import make_host_mesh
 
     t_phase = time.perf_counter()
+    cut = t_phase - t_start > PHASE13_CUT_AT_S
     _open_nccl_world1()
     try:
         mesh = make_host_mesh(device=dev)
         check(dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1},
               f"phase 13: an NCCL group of {mesh.size} rank, mesh {mesh.shape} on {mesh.device}")
-        out = {"phase": 13, "card": smi, "mesh": mesh.shape}
+        out = {"phase": 13, "card": smi, "mesh": mesh.shape, "cut": cut}
         t0 = time.perf_counter()
-        out["moe_ep"] = _phase13_moe_ep(mesh, dev, main_launches)
+        out["moe_ep"] = _phase13_moe_ep(mesh, dev, main_launches, cut)
         torch.cuda.empty_cache()
         out["moe_ep"]["part_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["online"] = _phase13_online(held, dev, main_launches)
         out["online_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["gcn"], params0 = _phase13_gcn(held, mesh, dev)
+        out["gcn"], params0 = _phase13_gcn(held, mesh, dev, PHASE13_CUT_GCN_STEPS if cut else GCN_STEPS)
         out["gcn"]["part_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -2818,7 +2931,7 @@ def phase13(held, dev, smi, main_launches):
     out["phase_s"] = time.perf_counter() - t_phase
     say(json.dumps(out))
     say(f"phase 13: {out['phase_s']:.1f} s (budget {PHASE13_BUDGET_S:.0f} s"
-        + (", over" if out["phase_s"] > PHASE13_BUDGET_S else "") + ")")
+        + (", over" if out["phase_s"] > PHASE13_BUDGET_S else "") + (", cut" if cut else "") + ")")
 
 
 # ---------------------------------------------------------------------------
@@ -3116,10 +3229,12 @@ PHASE15_LR = TRAIN_LR
 
 def _phase15_arch():
     """qwen3-moe-30b-a3b at ``FULL`` width (d_model 2,048, 32/4 heads, Dh
-    128, 128 experts top-8 of d_ff 768, vocab 151,936, bf16)."""
+    128, 128 experts top-8 of d_ff 768, vocab 151,936, bf16), remat off: the
+    step as this phase has always measured it (its depth probe, peak and one
+    launch a layer a step); phase 17 runs remat."""
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
 
-    return FULL
+    return dataclasses.replace(FULL, remat=False)
 
 
 def _phase15_params(cfg, dev):
@@ -3274,7 +3389,7 @@ def _phase15_ep_ranks(cfg, dev):
     gradient; the partial router and x gradients summed once against the
     dense ones. The loss leaves the aux out: it is the same on every rank
     (its gradient counted once is held on the CPU, 4 gloo ranks)."""
-    from repro_torch.distributed.sharding import ep_param_specs, shard_tree
+    from repro_torch.distributed.sharding import lm_param_specs, shard_tree
     from repro_torch.models.moe import moe_fwd, moe_fwd_ep, moe_init
     from repro_torch.optim.adamw import leaves, tree_map
 
@@ -3297,7 +3412,7 @@ def _phase15_ep_ranks(cfg, dev):
     expert_gap = {k: 0.0 for k in ("w_gate", "w_up", "w_down")}
     for q in range(PHASE15_MODEL_RANKS):
         view = _ModelRankView(q, PHASE15_MODEL_RANKS)
-        mine = shard_tree({"moe": lp}, ep_param_specs({"layers": {"moe": lp}})["layers"], view)["moe"]
+        mine = shard_tree({"moe": lp}, lm_param_specs({"layers": {"moe": lp}})["layers"], view)["moe"]
         g = grads(lambda p, xx: moe_fwd_ep(p, xx, cfg.moe, view), mine)
         for k in expert_gap:
             want = dense[k][q * e_loc:(q + 1) * e_loc]
@@ -3472,6 +3587,346 @@ def phase16(dev, smi, t_start):
         + (", over" if out["phase_s"] > PHASE16_BUDGET_S else "") + (", cut" if cut else "") + ")")
 
 
+# ---------------------------------------------------------------------------
+# phase 17
+# ---------------------------------------------------------------------------
+PHASE17_BUDGET_S = 30.0
+PHASE17_CUT_AT_S = 1050.0   # past this on the script's clock (a) trains PHASE17_CUT_LAYERS layers
+PHASE17_TOKENS = 4_096      # one sequence, as phases 10, 13 and 15
+PHASE17_LAYERS = 2          # (a)'s depth
+PHASE17_CUT_LAYERS = 1
+PHASE17_LAYER_RANKS = 4     # (b): granite's layer as 4 model ranks (8 q heads, 2 kv heads, 3,200 FFN columns)
+PHASE17_HEAD_RANKS = 16     # (c): yi-34b's attention, 3.5 q heads a rank
+PHASE17_DECODE_RANKS = 16   # (d): granite's decode, 2,048 cache positions a rank
+PHASE17_DECODE_BATCH = 8    # decode_32k's 128 sequences over 16 data shards
+PHASE17_DECODE_LEN = 32_768
+# The bars, in bfloat16 steps (2^-7) of the dense result's largest entry,
+# stated before the first card run. A sum over m model ranks rounds each
+# rank's part once and the dense result once: (m + 1) / 2 half-steps at most
+# for (c) and (d); (b) chains attention into the FFN and backpropagates
+# through both, so its forward and every gradient get 4 steps, as 13a's
+# summed parts do; the loss one step of itself (the logits are bfloat16).
+PHASE17_LAYER_ATOL_STEPS = 4
+PHASE17_HEAD_ATOL_STEPS = (PHASE17_HEAD_RANKS + 1) / 2
+PHASE17_DECODE_ATOL_STEPS = (PHASE17_DECODE_RANKS + 1) / 2
+PHASE17_LOSS_RTOL_STEPS = 1
+
+
+def _bf16_steps(got, want) -> tuple:
+    """``(gap in bf16 steps of want's largest entry, gap, largest entry)``."""
+    gap, top = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    return gap / (2.0 ** -7 * top), gap, top
+
+
+def _granite_tp_cfg(n_layers):
+    """granite-3-8b at ``FULL`` width (remat on, as the JAX config), the vocab
+    padded to a multiple of 128 as the registry's cells pad it (49,280: 12,320
+    rows a rank at 4), ``n_layers`` deep."""
+    from repro_torch.configs.granite_3_8b import FULL
+
+    return dataclasses.replace(FULL, vocab=-(-FULL.vocab // 128) * 128, n_layers=n_layers)
+
+
+def _phase17_train(mesh, depth, batch, dev, main_launches):
+    """(a) granite-3-8b's ``train_4k`` step from the registry on the (1, 1)
+    mesh (the JAX layout: tensor-parallel attention and SwiGLU,
+    vocabulary-parallel embedding and cross-entropy, remat) at ``depth``
+    layers against the dense step: the loss, every gradient and the updated
+    parameters bit for bit; the gradients also bit-equal to the step without
+    remat. The mesh step is the main-path run: one ``flash_attention``
+    launch a layer in the forward and one in remat's recompute."""
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    cfg = _granite_tp_cfg(depth)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=1)
+    params, init_s = once(lambda: tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    loss_tp, g_tp = base.value_and_grad(lambda p: tf.loss_fn(cfg, p, batch, mesh=mesh), params, mesh)
+    loss_d, g_d = base.value_and_grad(lambda p: tf.loss_fn(cfg, p, batch), params)
+    plain = dataclasses.replace(cfg, remat=False)
+    loss_n, g_n = base.value_and_grad(lambda p: tf.loss_fn(plain, p, batch), params)
+    n_leaves = len(list(adamw.leaves(g_d)))
+    same = torch.equal(loss_tp, loss_d) and all(torch.equal(a, b) for a, b in zip(adamw.leaves(g_tp), adamw.leaves(g_d)))
+    remat_same = torch.equal(loss_n, loss_d) and all(
+        torch.equal(a, b) for a, b in zip(adamw.leaves(g_n), adamw.leaves(g_d)))
+    finite = all(bool(torch.isfinite(g).all()) for g in adamw.leaves(g_tp))
+    attn_live = all(bool(g_tp["layers"]["attn"][w].float().abs().amax(dim=(1, 2)).min() > 0) for w in ("wq", "wk", "wv"))
+    del g_tp, g_d, g_n
+    gc.collect()
+    check(same and finite and attn_live,
+          f"phase 17 (a): {cfg.name} {depth} layers on the (1, 1) mesh, tensor parallel: the loss "
+          f"({float(loss_tp):.6f}) and all {n_leaves} gradient leaves == the dense step's, bit for bit, all finite, "
+          f"wq/wk/wv non-zero in every layer")
+    check(remat_same, "phase 17 (a): remat's loss and gradients == the step without remat, bit for bit")
+
+    state = adamw.init(params)
+    step = base.lm_dryrun(cfg, "train_4k", mesh, n_layers_override=depth, opt_cfg=opt).step_fn
+    torch.cuda.reset_peak_memory_stats()
+    ((new_tp, _, loss), step_s), counts = _counted(lambda: once(lambda: step(params, state, batch)), main_launches)
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+    new_d, _, loss0 = base.lm_train_step(cfg, None, opt)(params, state, batch)
+    equal = torch.equal(loss, loss0) and all(torch.equal(a, b) for a, b in zip(adamw.leaves(new_tp),
+                                                                                 adamw.leaves(new_d)))
+    moved = not torch.equal(new_tp["layers"]["attn"]["wq"], params["layers"]["attn"]["wq"])
+    del new_tp, new_d, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(equal and moved, f"phase 17 (a): the registry's train_4k step on the mesh == the dense step, bit for bit "
+                           f"(loss {float(loss):.6f}, every parameter after the AdamW update; wq moved)")
+    check(counts["flash_attention"] == 2 * depth and routes == {"wgmma": 2 * depth},
+          f"phase 17 (a): the step launched flash_attention {counts['flash_attention']} times, one a layer in the "
+          f"forward and one in remat's recompute, all on wgmma ({routes})")
+    say(f"phase 17 (a): {cfg.name} {depth} layers, one {PHASE17_TOKENS}-token sequence: TP step {step_s:.4f} s "
+        f"(the first, no warm-up), peak {peak:,} B; parameters drawn in {init_s:.2f} s")
+    return {"layers": depth, "loss": float(loss), "step_s": step_s, "peak_device_bytes": peak,
+            "flash_attention_launches": counts["flash_attention"], "flash_attention_routes": routes}
+
+
+def _rank_params(params, view):
+    """Model rank ``view.q``'s shards of ``params`` (a tree with the LM's
+    names) in the JAX layout."""
+    from repro_torch.distributed.sharding import lm_param_specs, shard_tree
+
+    return shard_tree(params, lm_param_specs(params), view)
+
+
+def _phase17_layer(dev):
+    """(b) One granite-3-8b layer at full width as ``PHASE17_LAYER_RANKS``
+    model ranks in turn (:func:`_play_model_ranks`: every collective as the
+    mesh would give it), its output and the gradient of ``sum(y · w)`` in x
+    and in each rank's shards against the dense layer; then the
+    vocabulary-parallel embedding (bit-equal) and cross-entropy (the mean
+    loss) against the dense ones on a seeded hidden state."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import leaves, tree_map
+
+    cfg = _granite_tp_cfg(1)
+    m = PHASE17_LAYER_RANKS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = tf.init_params(cfg, gen, device=dev)
+    lp = tf.layer_params(params, 0)
+    x = torch.randn((1, PHASE17_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    w = torch.randn((1, PHASE17_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    names = ["x"] + [".".join(k) for k in _paths(lp)]
+
+    def run(p, mesh):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        xl = x.detach().requires_grad_(True)
+        y, _ = tf._layer_fwd(cfg, live, xl, mesh)
+        return y.detach(), dict(zip(names, torch.autograd.grad((y.float() * w.float()).sum(), [xl, *leaves(live)])))
+
+    t0 = time.perf_counter()
+    y_d, g_d = run(lp, None)
+    dense_s = time.perf_counter() - t0
+    mine = [tf.layer_params(_rank_params({"layers": params["layers"]}, _ModelRankView(q, m)), 0) for q in range(m)]
+    t0 = time.perf_counter()
+    outs, passes = _play_model_ranks(m, lambda v: run(mine[v.q], v))
+    ranks_s = time.perf_counter() - t0
+    # each rank's shard against its slice of the dense gradient (columns: dim
+    # 1, rows: dim 0); x and the norms' scales whole on every rank
+    split = {"attn.wq": 1, "attn.wk": 1, "attn.wv": 1, "attn.wo": 0, "ffn.w_gate": 1, "ffn.w_up": 1,
+             "ffn.w_down": 0}
+    steps = {"y": _bf16_steps(outs[0][0], y_d)}
+    for k in names:
+        want = [g_d[k].chunk(m, dim=split[k])[q] if k in split else g_d[k] for q in range(m)]
+        gap = max(float((outs[q][1][k].float() - want[q].float()).abs().max()) for q in range(m))
+        top = float(g_d[k].float().abs().max())
+        steps[k] = (gap / (2.0 ** -7 * top), gap, top)
+    same_y = all(torch.equal(o[0], outs[0][0]) for o in outs)
+    del outs, g_d, mine
+    check(same_y and all(st[0] <= PHASE17_LAYER_ATOL_STEPS for st in steps.values()),
+          f"phase 17 (b): one {cfg.name} layer as {m} model ranks in turn ({cfg.n_heads // m} q heads, "
+          f"{cfg.n_kv_heads // m} kv heads, {cfg.d_ff // m} FFN columns a rank; {passes} replay passes): the output "
+          f"(the same on every rank) and the gradients in x and every shard within {PHASE17_LAYER_ATOL_STEPS} bf16 "
+          f"steps of the dense layer's largest entry (" + ", ".join(f"{k} {st[0]:.2f}" for k, st in steps.items())
+          + ")")
+
+    tokens = torch.randint(0, cfg.vocab, (1, PHASE17_TOKENS), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab, (1, PHASE17_TOKENS), generator=gen, device=dev)
+    ends = {k: params[k] for k in ("embed", "ln_f", "lm_head")}
+    heads = [_rank_params(ends, _ModelRankView(q, m)) for q in range(m)]
+    with torch.no_grad():
+        emb_d = tf.embed_tokens(params, tokens)
+        loss_d = float(tf.token_nll(tf.head(params, x), labels).mean())
+        outs, loss_passes = _play_model_ranks(m, lambda v: (
+            tf.embed_tokens(heads[v.q], tokens, v), tf.token_nll(tf.head(heads[v.q], x, v), labels, v).mean()))
+    loss_tp = float(outs[0][1])
+    emb_equal = all(torch.equal(o[0], emb_d) for o in outs)
+    rows = params["embed"].shape[0] // m
+    del outs, params, heads
+    check(emb_equal, f"phase 17 (b): the vocabulary-parallel embedding ({rows:,} rows a rank) == the dense lookup, "
+                     f"bit for bit")
+    check(abs(loss_tp - loss_d) <= PHASE17_LOSS_RTOL_STEPS * 2.0 ** -7 * abs(loss_d),
+          f"phase 17 (b): the vocabulary-parallel cross-entropy over {m} ranks ({loss_passes} replay passes) "
+          f"{loss_tp:.6f} == the dense {loss_d:.6f} within {PHASE17_LOSS_RTOL_STEPS} bf16 step "
+          f"(gap {abs(loss_tp - loss_d):.3g})")
+    say(f"phase 17 (b): dense layer forward+backward {dense_s:.3f} s; {m} ranks x {passes} passes {ranks_s:.3f} s")
+    return {"model_ranks": m, "passes": passes, "bf16_steps": {k: st[0] for k, st in steps.items()},
+            "max_abs_gap": {k: st[1] for k, st in steps.items()}, "loss": loss_tp, "dense_loss": loss_d,
+            "dense_s": dense_s, "ranks_s": ranks_s}
+
+
+def _paths(tree, prefix=()):
+    """The key paths of a nested dict's leaves, in ``adamw.leaves`` order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _paths(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _phase17_heads(dev, main_launches):
+    """(c) yi-34b's attention at full width as ``PHASE17_HEAD_RANKS`` model
+    ranks in turn: each rank's ``wo`` rows are 3.5 heads, so q is gathered
+    with k and v (every rank's part computed from the whole products), the
+    rank runs ``flash_attention`` once on the 4 heads its rows touch, and
+    the ranks' row-parallel parts, summed, against the dense attention.
+    The ranks' launches are a main-path run."""
+    from repro_torch import kernels
+    from repro_torch.configs.yi_34b import FULL as cfg
+    from repro_torch.models import layers as L
+
+    m = PHASE17_HEAD_RANKS
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lp = L.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, dev)
+    x = torch.randn((1, PHASE17_TOKENS, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    with torch.no_grad():
+        want = L.attention_fwd(lp, x, cfg.n_heads, cfg.n_kv_heads)
+        known = [list((x @ lp[k]).chunk(m, dim=-1)) for k in ("wq", "wk", "wv")]
+        torch.cuda.reset_peak_memory_stats()
+
+        def ranks():
+            parts = []
+            for q in range(m):
+                view = _ModelRankView(q, m, known)
+                mine = _rank_params({"layers": {"attn": lp}}, view)["layers"]["attn"]
+                L.attention_fwd(mine, x, cfg.n_heads, cfg.n_kv_heads, mesh=view)
+                parts += view.parts
+            return parts
+
+        (parts, ranks_s), counts = _counted(lambda: once(ranks), main_launches)
+        peak = torch.cuda.max_memory_allocated()
+        routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+        got = parts[0]
+        for part in parts[1:]:
+            got = got + part
+    st = _bf16_steps(got, want)
+    check(len(parts) == m and st[0] <= PHASE17_HEAD_ATOL_STEPS,
+          f"phase 17 (c): {cfg.name}'s attention as {m} model ranks in turn (3.5 q heads of wo rows a rank, q "
+          f"gathered), the parts summed == the dense attention within {PHASE17_HEAD_ATOL_STEPS} bf16 steps of its "
+          f"largest entry ({st[0]:.2f} steps: gap {st[1]:.4g} of {st[2]:.4g})")
+    check(counts["flash_attention"] == m and routes == {"wgmma": m},
+          f"phase 17 (c): {counts['flash_attention']} flash_attention launches, one a rank, all on wgmma ({routes})")
+    say(f"phase 17 (c): {m} ranks {ranks_s:.3f} s, peak {peak:,} B")
+    return {"model_ranks": m, "bf16_steps": st[0], "max_abs_gap": st[1], "max_abs_dense": st[2],
+            "ranks_s": ranks_s, "peak_device_bytes": peak, "flash_attention_launches": counts["flash_attention"]}
+
+
+def _phase17_decode(dev):
+    """(d) granite-3-8b's decode attention against a full 32,768-position
+    cache (8 sequences, the new token at the last position), split-K as
+    ``PHASE17_DECODE_RANKS`` model ranks in turn (2,048 positions each;
+    q, k and v gathered, the partial softmaxes combined by log-sum-exp,
+    replayed by :func:`_play_model_ranks`) against the dense
+    ``decode_attention``; the owner of the position writes its row."""
+    from repro_torch.configs.granite_3_8b import FULL as cfg
+    from repro_torch.models import layers as L
+
+    m, t, pos = PHASE17_DECODE_RANKS, PHASE17_DECODE_LEN, PHASE17_DECODE_LEN - 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lp = L.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, dev)
+    x = torch.randn((PHASE17_DECODE_BATCH, 1, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    shape = (PHASE17_DECODE_BATCH, t, cfg.n_kv_heads, cfg.head_dim)
+    ck = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    cv = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    tl = t // m
+    with torch.no_grad():
+        dk, dv = ck.clone(), cv.clone()
+        t0 = time.perf_counter()
+        want, _ = L.decode_attention(lp, x, cfg.n_heads, cfg.n_kv_heads, (dk, dv), pos)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+
+        def rank(view):
+            mine = _rank_params({"layers": {"attn": lp}}, view)["layers"]["attn"]
+            sl = slice(view.q * tl, (view.q + 1) * tl)
+            cache = (ck[:, sl].clone(), cv[:, sl].clone())
+            out, _ = L.decode_attention(mine, x, cfg.n_heads, cfg.n_kv_heads, cache, pos, mesh=view)
+            return out, cache
+
+        t0 = time.perf_counter()
+        outs, passes = _play_model_ranks(m, rank)
+        torch.cuda.synchronize()
+        ranks_s = time.perf_counter() - t0
+    st = _bf16_steps(outs[0][0], want)
+    owner = pos // tl
+    written = all(torch.equal(outs[q][1][0], ck[:, q * tl:(q + 1) * tl]) for q in range(m) if q != owner)
+    row = max(_bf16_steps(outs[owner][1][i][:, pos - owner * tl], d[:, pos])[0] for i, d in enumerate((dk, dv)))
+    same = all(torch.equal(o[0], outs[0][0]) for o in outs)
+    check(same and st[0] <= PHASE17_DECODE_ATOL_STEPS,
+          f"phase 17 (d): {cfg.name}'s decode attention over {t:,} cached positions as {m} model ranks in turn "
+          f"({tl:,} positions each, {passes} replay passes), split-K and combined by log-sum-exp == the dense "
+          f"decode_attention within {PHASE17_DECODE_ATOL_STEPS} bf16 steps of its largest entry ({st[0]:.2f} steps: "
+          f"gap {st[1]:.4g} of {st[2]:.4g}), the same on every rank")
+    check(written and row <= 1, f"phase 17 (d): only rank {owner} wrote the new key and value, within one bf16 "
+                                f"step of the dense cache's row ({row:.2f} steps); the other ranks' slices unchanged")
+    say(f"phase 17 (d): dense decode {dense_s * 1e3:.3f} ms; {m} ranks x {passes} passes {ranks_s:.3f} s")
+    return {"model_ranks": m, "passes": passes, "bf16_steps": st[0], "max_abs_gap": st[1], "max_abs_dense": st[2],
+            "dense_ms": dense_s * 1e3, "ranks_s": ranks_s}
+
+
+def phase17(dev, smi, main_launches, t_start):
+    """The JAX layout's tensor-parallel LM on the card (module docstring,
+    phase 17)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import LmDataConfig, lm_token_stream
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    cut = t_phase - t_start > PHASE17_CUT_AT_S
+    depth = PHASE17_CUT_LAYERS if cut else PHASE17_LAYERS
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    check(resident < PHASE9_RESIDENT_LIMIT,
+          f"phase 17: {resident:,} bytes allocated on the card before granite-3-8b is drawn (< 2 GB)")
+    cfg = _granite_tp_cfg(depth)
+    raw = next(lm_token_stream(LmDataConfig(vocab=cfg.vocab, seq_len=PHASE17_TOKENS, batch=1)))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    out = {"phase": 17, "card": smi, "budget_s": PHASE17_BUDGET_S, "cut": cut}
+    t0 = time.perf_counter()
+    _open_nccl_world1()
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1},
+              f"phase 17: an NCCL group of {mesh.size} rank, mesh {mesh.shape} on {mesh.device}")
+        out["train"] = _phase17_train(mesh, depth, batch, dev, main_launches)
+    finally:
+        dist.destroy_process_group()
+    out["train"]["part_s"] = time.perf_counter() - t0
+    for key, fn in (("layer", lambda: _phase17_layer(dev)), ("heads", lambda: _phase17_heads(dev, main_launches)),
+                    ("decode", lambda: _phase17_decode(dev))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["part_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    say(f"phase 17: (a) {out['train']['part_s']:.1f} s, (b) {out['layer']['part_s']:.1f} s, (c) "
+        f"{out['heads']['part_s']:.1f} s, (d) {out['decode']['part_s']:.1f} s; {out['phase_s']:.1f} s (budget "
+        f"{PHASE17_BUDGET_S:.0f} s" + (", over" if out["phase_s"] > PHASE17_BUDGET_S else "")
+        + (", cut" if cut else "") + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -3549,7 +4004,7 @@ def main() -> int:
     say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t11:.1f} s)")
     phase12(held, dev, smi, main_launches)
     say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
-    phase13(held, dev, smi, main_launches)
+    phase13(held, dev, smi, main_launches, t_start)
     say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     phase14(held, dev, smi, main_launches, t_start)
     say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
@@ -3557,12 +4012,15 @@ def main() -> int:
     say(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
     phase16(dev, smi, t_start)
     say(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    phase17(dev, smi, main_launches, t_start)
+    say(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
-        "replays of phase 12, the EP forward and the mesh online runs of phase 13, the replays and "
-        "runs of phase 14, the EP training steps of phase 15): " + json.dumps(main_launches, sort_keys=True))
+        "replays of phase 12, the mesh forward and the mesh online runs of phase 13, the replays and "
+        "runs of phase 14, the EP training steps of phase 15, the TP step and the model ranks' "
+        "attention of phase 17): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -15,16 +15,18 @@ A spec's ``abstract_args`` are ``meta`` tensors with the JAX package's
 shapes and dtypes (the whole arrays), and its ``in_specs`` the JAX layout,
 by the port's rules (:mod:`repro_torch.distributed.sharding`). Its
 ``step_fn`` is a torch function of one rank's arguments, as
-:func:`rank_args` cuts them from the whole ones. The port runs no
-tensor-parallel product, so a rank holds every leaf whole but along its
-batch axes, except the routed expert stacks of an MoE's train and prefill
-steps, which stay split over the model axis: those steps run expert
-parallel (:func:`~repro_torch.models.moe.moe_fwd_ep`; passing a mesh is
-the twin of the JAX ``moe_impl="ep_shardmap"``). A ``train`` step is a
+:func:`rank_args` cuts them from the whole ones. An LM cell runs the JAX
+layout itself: each rank holds its shard of every leaf, and the step is
+``transformer.loss_fn``/``forward``/``serve_step`` with the mesh
+(vocabulary-parallel embedding and cross-entropy, tensor-parallel attention
+and SwiGLU, expert-parallel routed experts, split-K decode). A DIN cell
+runs with its tables whole along the model axis (its lookup is not
+vocabulary parallel): its ``run_specs`` say so. A ``train`` step is a
 loss and its gradients through ``torch.autograd`` (the trainer's
 :func:`~repro_torch.train.loop.value_and_grad`: with a mesh every rank
 holds the global loss and the gradients are summed over the batch axes),
-then :func:`repro_torch.optim.adamw.update`. A builder's mesh is a live
+then :func:`repro_torch.optim.adamw.update` with the clipping norm over
+the shards (:func:`grad_norm`). A builder's mesh is a live
 :class:`~repro_torch.launch.mesh.HostMesh` or the dry run's
 :class:`~repro_torch.launch.mesh.MetaMesh`.
 
@@ -63,6 +65,7 @@ class DryRunSpec:
     in_specs: Tuple                 # matching spec tree (the JAX layout)
     kind: str                       # train | prefill | decode | serve | retrieval
     note: str = ""
+    run_specs: Optional[Tuple] = None   # the placement the step runs under, where it is not in_specs
 
 
 @dataclasses.dataclass
@@ -149,30 +152,28 @@ def _data_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
 
 def rank_args(spec: DryRunSpec, mesh) -> Tuple:
     """This rank's arguments of ``spec.step_fn``: ``spec.abstract_args`` cut
-    along the batch axes ``in_specs`` name, and along the model axis only
-    for the routed expert stacks of a train or prefill step
-    (:func:`~repro_torch.distributed.sharding.rank_spec`). On ``meta`` a cut
-    allocates nothing."""
-    ep = spec.kind in ("train", "prefill")
-
-    def walk(a, s, path):
+    by the specs the step runs under (``run_specs``, else ``in_specs``). On
+    ``meta`` a cut allocates nothing."""
+    def walk(a, s):
         if isinstance(a, dict):
-            return {k: walk(v, s[k], path + (k,)) for k, v in a.items()}
+            return {k: walk(v, s[k]) for k, v in a.items()}
         if isinstance(a, (tuple, list)):
-            return type(a)(walk(v, sv, path + (str(i),)) for i, (v, sv) in enumerate(zip(a, s)))
-        return shd.shard_leaf(a, shd.rank_spec(".".join(path), s, ep), mesh)
+            return type(a)(walk(v, sv) for v, sv in zip(a, s))
+        return shd.shard_leaf(a, s, mesh)
 
-    return walk(spec.abstract_args, spec.in_specs, ())
+    return walk(spec.abstract_args, spec.run_specs or spec.in_specs)
 
 
-def grad_norm(grads: PyTree, mesh) -> Optional[torch.Tensor]:
-    """The whole gradient's norm where the routed expert stacks are split
-    over more than one model rank (their squares summed over the model
-    axis), for :func:`~repro_torch.optim.adamw.update`'s clipping; ``None``
-    where nothing is split (the update then computes the same norm)."""
-    if mesh is None or mesh.shape.get("model", 1) == 1:
+def grad_norm(grads: PyTree, mesh, specs: Optional[PyTree] = None) -> Optional[torch.Tensor]:
+    """The whole gradient's norm, for :func:`~repro_torch.optim.adamw.update`'s
+    clipping, where ``specs`` (the parameters' spec tree) split some leaf
+    over more than one model rank: those leaves' squares are summed over the
+    model axis, every other leaf (whole on each model rank) counted once.
+    ``None`` where nothing is split (the update then computes the same
+    norm)."""
+    if mesh is None or specs is None or mesh.shape.get("model", 1) == 1:
         return None
-    split = [i for i, s in enumerate(adamw.leaves(shd.ep_param_specs(grads))) if "model" in s]
+    split = [i for i, s in enumerate(adamw.leaves(specs)) if shd.splits_over(s, "model")]
     if not split:
         return None
     squares = [torch.sum(torch.square(g.to(torch.float32))) for g in adamw.leaves(grads)]
@@ -183,16 +184,20 @@ def grad_norm(grads: PyTree, mesh) -> Optional[torch.Tensor]:
 
 
 def train_step_fn(loss_f: Callable[[PyTree, Dict[str, torch.Tensor]], torch.Tensor], mesh=None,
-                  opt_cfg: Optional[adamw.AdamWConfig] = None) -> Callable:
+                  opt_cfg: Optional[adamw.AdamWConfig] = None,
+                  specs_of: Optional[Callable[[PyTree], PyTree]] = None) -> Callable:
     """``train_step(params, opt_state, batch) → (params, opt_state, loss)``:
     :func:`value_and_grad` of ``loss_f(params, batch)``, then one AdamW
-    update (pure: new tensors, the inputs untouched)."""
+    update (pure: new tensors, the inputs untouched). ``specs_of`` gives the
+    parameters' spec tree where a mesh splits leaves over the model axis
+    (the clipping's :func:`grad_norm`)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(lambda p: loss_f(p, batch), params, mesh)
+        specs = specs_of(grads) if specs_of is not None else None
         params, opt_state, _ = adamw.update(params, grads, opt_state, opt_cfg,
-                                            grad_norm=grad_norm(grads, mesh))
+                                            grad_norm=grad_norm(grads, mesh, specs))
         return params, opt_state, loss
 
     return train_step
@@ -214,10 +219,11 @@ LM_SKIP_LONG = (
 
 
 def lm_train_step(cfg: tf.TransformerConfig, mesh=None, opt_cfg: Optional[adamw.AdamWConfig] = None) -> Callable:
-    """The LM's train step: expert parallel on a mesh for an MoE config,
-    data parallel for a dense one, the dense dispatch on one device
-    (``mesh`` None)."""
-    return train_step_fn(lambda p, b: tf.loss_fn(cfg, p, b, mesh=mesh), mesh, opt_cfg)
+    """The LM's train step: the JAX layout on a mesh (the parameters and
+    the optimizer state this rank's shards by ``lm_param_specs``, the batch
+    its data shard), the dense step on one device (``mesh`` None)."""
+    return train_step_fn(lambda p, b: tf.loss_fn(cfg, p, b, mesh=mesh), mesh, opt_cfg,
+                         specs_of=shd.lm_param_specs)
 
 
 def lm_dryrun(
@@ -231,7 +237,9 @@ def lm_dryrun(
     run's probes; ``chip_smoke.py`` trains the qwen3-moe-30b-a3b cell at
     the depth one card holds), and ``opt_cfg`` replaces the train step's
     default ``AdamWConfig()`` (whose 100 warm-up steps move no bf16 weight
-    in a few steps). Decode stays dense, as in the JAX package."""
+    in a few steps). Every step runs the JAX layout on the mesh; the
+    prefill step gathers the last position's logits over the model axis,
+    and decode returns the rank's vocabulary columns."""
     cfg = dataclasses.replace(cfg, vocab=-(-cfg.vocab // 128) * 128,
                               n_layers=n_layers_override or cfg.n_layers)
     params_abs = tf.init_abstract(cfg)
@@ -252,8 +260,8 @@ def lm_dryrun(
 
     if shape == "prefill_32k":
         def prefill_step(params, tokens):
-            logits, _ = tf.forward(cfg, params, tokens, mesh=mesh if cfg.moe else None)
-            return logits[:, -1, :]
+            logits, _ = tf.forward(cfg, params, tokens, mesh=mesh)
+            return torch.cat(mesh.all_gather(logits[:, -1, :].contiguous(), axis="model"), dim=-1)
 
         return DryRunSpec(
             step_fn=prefill_step,
@@ -266,7 +274,7 @@ def lm_dryrun(
         cspec = shd.kv_cache_spec(mesh)
 
         def decode_step(params, token, cache):
-            return tf.serve_step(cfg, params, token, cache, t - 1)
+            return tf.serve_step(cfg, params, token, cache, t - 1, mesh=mesh)
 
         return DryRunSpec(
             step_fn=decode_step,
@@ -492,6 +500,7 @@ def din_batch_specs(mesh, with_label: bool = True):
 def din_dryrun(cfg: recsys_m.DinConfig, shape: str, mesh) -> DryRunSpec:
     params_abs = recsys_m.init(cfg, torch.Generator(), device="meta")
     pspecs = shd.din_param_specs(params_abs)
+    whole = shd.replicated_specs(params_abs)  # as run: the tables whole along the model axis
     baxes = shd.batch_axes(mesh)
     s = DIN_SHAPES[shape]
     b = s["batch"]
@@ -502,6 +511,7 @@ def din_dryrun(cfg: recsys_m.DinConfig, shape: str, mesh) -> DryRunSpec:
             (params_abs, adamw.init(params_abs), din_batch_abs(cfg, b)),
             (pspecs, shd.opt_state_specs(pspecs), din_batch_specs(mesh)),
             "train",
+            run_specs=(whole, shd.opt_state_specs(whole), din_batch_specs(mesh)),
         )
 
     if shape in ("serve_p99", "serve_bulk"):
@@ -513,6 +523,7 @@ def din_dryrun(cfg: recsys_m.DinConfig, shape: str, mesh) -> DryRunSpec:
             (params_abs, din_batch_abs(cfg, b, with_label=False)),
             (pspecs, din_batch_specs(mesh, with_label=False)),
             "serve",
+            run_specs=(whole, din_batch_specs(mesh, with_label=False)),
         )
 
     # retrieval_cand: one user against 1M candidates; the user tower
@@ -531,6 +542,7 @@ def din_dryrun(cfg: recsys_m.DinConfig, shape: str, mesh) -> DryRunSpec:
          _meta((nc,), torch.int32), _meta((nc,), torch.int32)),
         (pspecs, replicated_batch, shd.spec(baxes), shd.spec(baxes)),
         "retrieval",
+        run_specs=(whole, replicated_batch, shd.spec(baxes), shd.spec(baxes)),
     )
 
 

@@ -10,7 +10,7 @@ from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
     name="deepseek-coder-33b", n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8,
-    d_ff=19200, vocab=32_256, dtype=torch.bfloat16,
+    d_ff=19200, vocab=32_256, dtype=torch.bfloat16, remat=True,
 )
 
 base.register(base.ArchConfig(

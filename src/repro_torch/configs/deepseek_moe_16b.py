@@ -13,7 +13,7 @@ from repro_torch.models.transformer import TransformerConfig
 MOE = MoeConfig(n_experts=64, top_k=6, n_shared=2, d_ff=1408)
 FULL = TransformerConfig(
     name="deepseek-moe-16b", n_layers=28, d_model=2048, n_heads=16, n_kv_heads=16,
-    d_ff=1408, vocab=102_400, moe=MOE, dtype=torch.bfloat16,
+    d_ff=1408, vocab=102_400, moe=MOE, dtype=torch.bfloat16, remat=True,
 )
 
 base.register(base.ArchConfig(

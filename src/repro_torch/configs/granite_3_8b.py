@@ -10,7 +10,7 @@ from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
     name="granite-3-8b", n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
-    d_ff=12800, vocab=49_155, dtype=torch.bfloat16,
+    d_ff=12800, vocab=49_155, dtype=torch.bfloat16, remat=True,
 )
 
 base.register(base.ArchConfig(

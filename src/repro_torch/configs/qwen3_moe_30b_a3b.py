@@ -12,7 +12,7 @@ from repro_torch.models.transformer import TransformerConfig
 MOE = MoeConfig(n_experts=128, top_k=8, n_shared=0, d_ff=768)
 FULL = TransformerConfig(
     name="qwen3-moe-30b-a3b", n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4,
-    d_head=128, d_ff=768, vocab=151_936, moe=MOE, dtype=torch.bfloat16,
+    d_head=128, d_ff=768, vocab=151_936, moe=MOE, dtype=torch.bfloat16, remat=True,
 )
 
 base.register(base.ArchConfig(

@@ -10,7 +10,7 @@ from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
     name="yi-34b", n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8,
-    d_ff=20480, vocab=64_000, dtype=torch.bfloat16,
+    d_ff=20480, vocab=64_000, dtype=torch.bfloat16, remat=True,
 )
 
 base.register(base.ArchConfig(

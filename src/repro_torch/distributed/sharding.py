@@ -17,18 +17,17 @@ package's, by leaf name:
 
 Stacked-layer leaves carry a leading L axis, which stays whole. GNN node
 tables shard over the data axes; DIN's embedding tables over model rows.
-The optimizer state mirrors the parameter specs. :func:`ep_param_specs`
-places an LM for the expert-parallel forward: only the routed expert
-stacks split, over the model axis.
+The optimizer state mirrors the parameter specs. The port runs an LM
+under these specs (``transformer.forward``/``loss_fn``/``serve_step`` with
+a mesh): vocabulary-parallel embedding and head, tensor-parallel attention
+and SwiGLU, expert-parallel routed experts, split-K decode.
 
 A process group has no global array, so :func:`shard_tree` stands for the
 JAX package's ``to_shardings`` + ``device_put``: it gives this rank its
 slice of each leaf, and :func:`gather_tree` puts the leaves back together
 with ``all_gather`` along each sharded dimension's axes. Both take a
 :class:`~repro_torch.launch.mesh.HostMesh` (or, on ``meta`` tensors, the
-dry run's :class:`~repro_torch.launch.mesh.MetaMesh`). :func:`rank_spec`
-says how the port runs a leaf that the JAX layout splits over the model
-axis.
+dry run's :class:`~repro_torch.launch.mesh.MetaMesh`).
 """
 
 from __future__ import annotations
@@ -42,9 +41,9 @@ Spec = Tuple[Entry, ...]
 Tree = Dict[str, Any]
 
 __all__ = [
-    "Spec", "batch_axes", "data_shards", "lm_param_specs", "ep_param_specs", "replicated_specs", "opt_state_specs", "lm_batch_spec",
+    "Spec", "batch_axes", "data_shards", "lm_param_specs", "replicated_specs", "opt_state_specs", "lm_batch_spec",
     "kv_cache_spec", "gnn_node_spec", "din_param_specs", "leaf_shards", "shard_leaf", "shard_tree", "gather_tree",
-    "rank_spec",
+    "splits_over",
 ]
 
 
@@ -72,11 +71,6 @@ def data_shards(mesh) -> int:
     return n
 
 
-def _routed_expert(path: str) -> bool:
-    return ".moe." in path and ".shared." not in path and any(
-        k in path for k in ("w_gate", "w_up", "w_down"))
-
-
 def _lm_leaf_spec(path: str, ndim: int) -> Spec:
     """Spec for one LM parameter leaf, by name pattern (see module doc)."""
     stacked = ".layers." in path or path.startswith("layers.")
@@ -95,7 +89,7 @@ def _lm_leaf_spec(path: str, ndim: int) -> Spec:
         base = ()
     # MoE routed-expert stacks have a leading E axis under "moe"; the
     # always-on shared expert is a plain SwiGLU and keeps the TP rules.
-    if _routed_expert(path):
+    if ".moe." in path and ".shared." not in path and any(k in path for k in ("w_gate", "w_up", "w_down")):
         base = ("model",) + (None,) * 2
     pad = ndim - len(base) - (1 if stacked else 0)
     s = ((None,) if stacked else ()) + (None,) * max(pad, 0) + base
@@ -112,15 +106,6 @@ def _map_with_path(fn, tree: Tree, prefix: str = "") -> Tree:
 def lm_param_specs(params: Tree) -> Tree:
     """Spec tree of LM parameters (tensors, ``meta`` tensors included)."""
     return _map_with_path(lambda path, leaf: _lm_leaf_spec(path, len(leaf.shape)), params)
-
-
-def ep_param_specs(params: Tree) -> Tree:
-    """Spec tree of the expert-parallel forward: the routed expert stacks
-    split over the model axis as :func:`lm_param_specs` splits them, every
-    other leaf whole on every rank (the port runs no tensor-parallel
-    forward, so nothing else is split)."""
-    return _map_with_path(
-        lambda path, leaf: _lm_leaf_spec(path, len(leaf.shape)) if _routed_expert(path) else (), params)
 
 
 def replicated_specs(tree: Tree) -> Tree:
@@ -165,6 +150,11 @@ def _shards(mesh, entry: Entry) -> int:
     return n
 
 
+def splits_over(s: Spec, axis: str) -> bool:
+    """Whether a leaf of spec ``s`` is split along ``axis``."""
+    return any(axis in _entry_axes(e) for e in s)
+
+
 def leaf_shards(s: Spec, mesh) -> int:
     """The ranks a leaf of spec ``s`` is split across (1: whole on each)."""
     n = 1
@@ -200,17 +190,6 @@ def shard_leaf(leaf: torch.Tensor, s: Spec, mesh) -> torch.Tensor:
 def shard_tree(tree: Tree, specs: Tree, mesh) -> Tree:
     """This rank's slice of every leaf (:func:`shard_leaf`)."""
     return _walk(lambda leaf, s: shard_leaf(leaf, s, mesh), tree, specs)
-
-
-def rank_spec(path: str, s: Spec, expert_parallel: bool) -> Spec:
-    """How the port places a leaf at ``path`` that the JAX layout gives
-    spec ``s``: the batch axes keep their split, and the model axis splits
-    only a routed expert stack of an expert-parallel step (as
-    :func:`ep_param_specs`). The port runs no tensor-parallel product, so
-    every other leaf is whole along the model axis."""
-    if expert_parallel and _routed_expert(path):
-        return s
-    return spec(*(tuple(a for a in _entry_axes(e) if a != "model") for e in s))
 
 
 def gather_tree(tree: Tree, specs: Tree, mesh) -> Tree:

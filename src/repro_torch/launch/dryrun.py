@@ -14,8 +14,9 @@ and mesh it appends one JSON line with
 
 * ``bytes_per_device``: parameters, optimizer state and batch (and the KV
   cache or candidates, by the cell's kind) under the cell's specs, the JAX
-  layout; ``bytes_per_device_as_run``: the same under the port's placement
-  (no tensor-parallel split);
+  layout; ``bytes_per_device_as_run``: the same under the placement the
+  port's step runs (the same in every LM cell, which runs the JAX layout;
+  DIN's tables whole along the model axis);
 * ``collectives``: the bytes each collective kind receives on rank 0, in
   the JAX dry run's layout;
 * ``flops_per_device``: the FLOPs the counter saw in rank 0's step;
@@ -43,7 +44,7 @@ from typing import Dict, Optional, Sequence
 
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.distributed.sharding import leaf_shards, rank_spec
+from repro_torch.distributed.sharding import leaf_shards
 from repro_torch.launch.mesh import make_production_mesh
 
 MEMORY_ANALYSIS_REASON = ("no compiler, so no buffer assignment: torch runs the step op by op, and "
@@ -80,15 +81,13 @@ def leaves_with_specs(args, specs, path=()):
 
 def _per_device_bytes(spec, mesh, as_run: bool) -> Dict[str, int]:
     """Bytes of rank 0's arguments, by name: each leaf's bytes over the
-    ranks its spec splits it across (under the port's placement when
+    ranks its spec splits it across (under the specs the step runs, when
     ``as_run``)."""
-    ep = spec.kind in ("train", "prefill")
+    specs = (spec.run_specs or spec.in_specs) if as_run else spec.in_specs
     out: Dict[str, int] = {}
-    for i, (arg, s) in enumerate(zip(spec.abstract_args, spec.in_specs)):
+    for i, (arg, s) in enumerate(zip(spec.abstract_args, specs)):
         name = _ARG_NAMES[spec.kind][i]
-        for path, leaf, leaf_spec in leaves_with_specs(arg, s, (str(i),)):
-            if as_run:
-                leaf_spec = rank_spec(path, leaf_spec, ep)
+        for _, leaf, leaf_spec in leaves_with_specs(arg, s, (str(i),)):
             out[name] = out.get(name, 0) + leaf.numel() * leaf.element_size() // leaf_shards(leaf_spec, mesh)
     return out
 

@@ -26,7 +26,8 @@ collective bytes, which it parses from the compiled HLO).
 
 :func:`sum_replicated` and :func:`grad_sum` are the two collectives of a
 model-parallel region (Megatron's g and f) as ``torch.autograd.Function``s
-on a mesh's subgroups. The port follows the JAX convention that every rank
+on a mesh's subgroups, and :func:`gather_last` the all-gather of column
+shards whose backward reduce-scatters. The port follows the JAX convention that every rank
 holds the global loss: a sum whose result is then replicated passes its
 cotangent through unchanged (g), and an input that feeds each rank's own
 part of a sum gets its gradient summed over those ranks (f).
@@ -46,8 +47,8 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["HostMesh", "MetaMesh", "ReplayMesh", "grad_sum", "make_host_mesh", "make_production_mesh",
-           "make_replay_mesh", "open_group", "sum_replicated"]
+__all__ = ["HostMesh", "MetaMesh", "ReplayMesh", "gather_last", "grad_sum", "make_host_mesh",
+           "make_production_mesh", "make_replay_mesh", "open_group", "sum_replicated"]
 
 AXES = ("data", "model")
 #: the collective kinds of the JAX dry run's HLO count, in its order
@@ -313,9 +314,10 @@ class MetaMesh:
     """A mesh with no process group: its axis sizes and rank 0's view of it.
 
     The dry run's stand-in for a mesh of ``size`` devices. Every axis index
-    is 0. Its collective, ``all_reduce`` (the one the cells' steps call),
-    takes a ``meta`` tensor only (the dry run allocates nothing), returns a
-    ``meta`` result of its shape and adds the bytes this rank receives to
+    is 0. Its collectives (``all_reduce``, ``all_gather``,
+    ``reduce_scatter``: the ones the cells' steps call) take ``meta``
+    tensors only (the dry run allocates nothing), return ``meta`` results of
+    the right shapes and add the bytes this rank receives to
     :attr:`collectives` under the JAX dry run's names (the output size, as
     the JAX dry run sums HLO outputs). A collective along axes of one device
     moves nothing and is not counted."""
@@ -349,13 +351,30 @@ class MetaMesh:
             n *= self.shape[a]
         return n
 
-    def all_reduce(self, t: torch.Tensor, op=None, axis=None) -> torch.Tensor:
+    def _count(self, kind: str, t: torch.Tensor, axis, out_elements: int) -> int:
+        """Check ``t`` is ``meta``; count ``out_elements`` of its type
+        received under ``kind`` where ``axis`` spans more than one device.
+        Returns the span."""
         if t.device.type != "meta":
             raise ValueError(f"a MetaMesh collective takes meta tensors, got one on {t.device}")
-        if self._span(axis) > 1:
-            self.collectives["all-reduce"]["count"] += 1
-            self.collectives["all-reduce"]["bytes"] += t.numel() * t.element_size()
+        n = self._span(axis)
+        if n > 1:
+            self.collectives[kind]["count"] += 1
+            self.collectives[kind]["bytes"] += out_elements * t.element_size()
+        return n
+
+    def all_reduce(self, t: torch.Tensor, op=None, axis=None) -> torch.Tensor:
+        self._count("all-reduce", t, axis, t.numel())
         return torch.empty_like(t)
+
+    def all_gather(self, t: torch.Tensor, axis=None) -> List[torch.Tensor]:
+        n = self._count("all-gather", t, axis, t.numel() * self._span(axis))
+        return [torch.empty_like(t) for _ in range(n)]
+
+    def reduce_scatter(self, t: torch.Tensor, axis=None) -> torch.Tensor:
+        n = self._span(axis)
+        self._count("reduce-scatter", t, axis, t.numel() // n)
+        return torch.empty_like(t.chunk(n, dim=0)[0])
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MetaMesh:
@@ -400,3 +419,25 @@ def grad_sum(t: torch.Tensor, mesh, axis) -> torch.Tensor:
     feeds into its own part of a :func:`sum_replicated`: the backward sums
     the ranks' cotangents, so the gradient is the whole one on each."""
     return _GradSum.apply(t, mesh, axis)
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return torch.cat(mesh.all_gather(t, axis=axis), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = ctx.mesh.shape[ctx.axis]
+        blocks = torch.stack(grad.chunk(n, dim=-1))                 # [n, ..., C]: rank i's columns at i
+        return ctx.mesh.reduce_scatter(blocks, axis=ctx.axis)[0], None, None
+
+
+def gather_last(t: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Every rank's ``t`` along ``axis``, concatenated on the last dimension
+    in their index order: the whole of a column-sharded product. Its
+    backward reduce-scatters: each rank's cotangent of the whole is its
+    share of a replicated loss, so the block of ``t``'s columns is summed
+    over the ranks and each keeps its own."""
+    return _GatherLast.apply(t, mesh, axis)

@@ -25,8 +25,9 @@ over a :class:`~repro_torch.launch.mesh.HostMesh` (or the dry run's
 :class:`~repro_torch.launch.mesh.MetaMesh`): tokens stay on their data
 shard, each model rank holds ``E / model`` experts and routes every token
 of its shard, and one ``all_reduce`` over the model axis combines the
-experts' outputs. It is differentiable in ``x`` and every parameter, with
-the JAX convention that every rank holds the global loss.
+experts' outputs with the tensor-parallel shared expert's partials. It is
+differentiable in ``x`` and every parameter, with the JAX convention that
+every rank holds the global loss.
 """
 
 from __future__ import annotations
@@ -159,26 +160,30 @@ def moe_fwd_ep(p: Params, x: torch.Tensor, cfg: MoeConfig, mesh) -> Tuple[torch.
     ``moe_fwd_ep``) on this rank of a mesh with a ``model`` axis and its
     batch axes (``data``, and ``pod`` on a multi-pod mesh).
 
-    ``x [B_loc, T, D]`` is the rank's data shard of the tokens; ``p`` holds
-    the whole router and shared expert and this model rank's experts
-    ``[e0, e0 + E_loc)`` (``w_gate``/``w_up``/``w_down`` sliced on E, as
-    :func:`~repro_torch.distributed.sharding.shard_tree` places them with
-    :func:`~repro_torch.distributed.sharding.ep_param_specs`). Every model
-    rank routes all of the shard's tokens, with the capacity of the local
-    token count; assignments to other ranks' experts sort last and drop
-    here; one ``all_reduce`` over the model axis sums the experts' outputs,
-    then the shared expert is added. ``aux`` is the per-shard loss averaged
-    over the batch axes, as the JAX ``pmean``. On a (1, 1) mesh the result
-    is :func:`moe_fwd`'s, bit for bit, and so are the gradients.
+    ``x [B_loc, T, D]`` is the rank's data shard of the tokens; ``p`` is
+    this model rank's shard in the JAX layout (as
+    :func:`~repro_torch.distributed.sharding.shard_tree` places it with
+    :func:`~repro_torch.distributed.sharding.lm_param_specs`): the whole
+    router, its experts ``[e0, e0 + E_loc)`` (``w_gate``/``w_up``/``w_down``
+    sliced on E) and, with ``n_shared``, its column shards of the shared
+    expert's ``w_gate``/``w_up`` and row shard of its ``w_down`` (tensor
+    parallel, as the JAX rules keep it). Every model rank routes all of the
+    shard's tokens, with the capacity of the local token count; assignments
+    to other ranks' experts sort last and drop here; the rank's experts'
+    outputs and its shared-expert partial are summed over the model axis by
+    one ``all_reduce``. ``aux`` is the per-shard loss averaged over the
+    batch axes, as the JAX ``pmean``. On a (1, 1) mesh the result is
+    :func:`moe_fwd`'s, bit for bit, and so are the gradients.
 
     The backward is Megatron's f/g pair (:func:`~repro_torch.launch.mesh.
     grad_sum`, :func:`~repro_torch.launch.mesh.sum_replicated`): the
     combine and the aux's mean pass their cotangents through, and the
-    experts' two inputs (the tokens as dispatched and the gate values) sum
-    theirs over the model axis. So the router's, the shared expert's and
-    ``x``'s gradients are whole and equal on every model rank, each rank's
-    expert gradients are those of its own experts, and a train step sums
-    every leaf's gradient over the batch axes only."""
+    experts' two inputs (the tokens as dispatched, which the shared expert
+    reads too, and the gate values) sum theirs over the model axis. So the
+    router's and ``x``'s gradients are whole and equal on every model rank,
+    each rank's expert and shared-expert gradients are those of its own
+    shards, and a train step sums every leaf's gradient over the batch axes
+    only."""
     b, t, d = x.shape
     n = b * t
     xf = x.reshape(n, d)
@@ -191,9 +196,9 @@ def moe_fwd_ep(p: Params, x: torch.Tensor, cfg: MoeConfig, mesh) -> Tuple[torch.
 
     local_e = expert_idx.reshape(-1) - mesh.axis_index("model") * e_loc
     sort_key = torch.where((local_e >= 0) & (local_e < e_loc), local_e, e_loc)
-    y = _experts(p, grad_sum(xf, mesh, "model"), sort_key, grad_sum(gate_vals, mesh, "model"),
-                 e_loc, capacity(n, cfg), cfg.top_k)
-    y = sum_replicated(y, mesh, "model")
+    xg = grad_sum(xf, mesh, "model")
+    y = _experts(p, xg, sort_key, grad_sum(gate_vals, mesh, "model"), e_loc, capacity(n, cfg), cfg.top_k)
     if cfg.n_shared:
-        y = y + swiglu(p["shared"], xf)
+        y = y + swiglu(p["shared"], xg)
+    y = sum_replicated(y, mesh, "model")
     return y.reshape(b, t, d), aux

@@ -7,8 +7,10 @@ JAX runs in a subprocess on four forced CPU devices, under
 ``jax.sharding.set_mesh`` of a ``("data", "model")`` mesh of shape (1, 4),
 (2, 2) and (4, 1); it draws the inputs and writes them with its outputs.
 The port runs the same three meshes on four gloo ranks (each rank its data
-shard of the tokens and its expert shard, placed by ``shard_tree``) and
-rank 0 writes the outputs gathered over the data axis. Held: y within
+shard of the tokens and its shard of every leaf in the JAX layout, placed
+by ``shard_tree``: its experts, and the shared expert and the transformer's
+other weights tensor parallel) and rank 0 writes the outputs gathered over
+the model and data axes. Held: y within
 1e-5, aux within 1e-6, for an MoE with a shared expert and one whose low
 capacity factor drops assignments, and a two-layer MoE transformer's
 logits within 1e-5. The backward: the gradient of ``sum(y · w) + aux``
@@ -161,7 +163,7 @@ _PORT_EP = _CONFIGS + textwrap.dedent('''
                  "w_down": ("model", None, None)}
         if "shared" in tree(arrays, f"moe_{name}/"):
             p["shared"] = {k: torch.as_tensor(v) for k, v in tree(arrays, f"moe_{name}/shared/").items()}
-            specs["shared"] = {"w_gate": (), "w_up": (), "w_down": ()}
+            specs["shared"] = {"w_gate": (None, "model"), "w_up": (None, "model"), "w_down": ("model", None)}
         return p, specs
 
 
@@ -182,7 +184,7 @@ _PORT_EP = _CONFIGS + textwrap.dedent('''
         try:
             from repro_torch.configs import base
             from repro_torch.convert import transformer_params_from_arrays
-            from repro_torch.distributed.sharding import ep_param_specs, gather_tree, lm_batch_spec, shard_tree
+            from repro_torch.distributed.sharding import gather_tree, lm_batch_spec, lm_param_specs, shard_tree
             from repro_torch.launch.mesh import make_host_mesh, sum_replicated
             from repro_torch.models import transformer as T
             from repro_torch.models.moe import MoeConfig, moe_fwd_ep
@@ -209,9 +211,11 @@ _PORT_EP = _CONFIGS + textwrap.dedent('''
                         saved[f"y/{name}/{tag}"] = torch.cat(mesh.all_gather(y, axis="data")).numpy()
                         saved[f"aux/{name}/{tag}"] = aux.numpy()
                         saved[f"e_loc/{name}/{tag}"] = np.asarray(shard_tree(p, specs, mesh)["w_gate"].shape[0])
-                    placed = shard_tree(lm, ep_param_specs(lm), mesh)
+                    pspecs = lm_param_specs(lm)
+                    placed = shard_tree(lm, pspecs, mesh)
                     tok_loc = shard_tree({"t": tokens}, {"t": lm_batch_spec(mesh)}, mesh)["t"]
                     logits, aux = T.forward(tcfg, placed, tok_loc, mesh=mesh)
+                    logits = torch.cat(mesh.all_gather(logits, axis="model"), dim=-1)  # vocabulary columns
                     saved[f"logits/{tag}"] = torch.cat(mesh.all_gather(logits, axis="data")).numpy()
                     saved[f"lm_aux/{tag}"] = aux.numpy()
                 # The backward: every rank holds the global loss; the leaves'
@@ -235,14 +239,13 @@ _PORT_EP = _CONFIGS + textwrap.dedent('''
                 lab_loc = shard_tree({"t": labels}, {"t": lm_batch_spec(mesh)}, mesh)["t"]
                 batch = {"tokens": tok_loc, "labels": lab_loc}
                 loss, grads = base.value_and_grad(lambda q: T.loss_fn(tcfg, q, batch, mesh=mesh), placed, mesh)
-                pspecs = ep_param_specs(lm)
                 for key, t in flat(gather_tree(grads, pspecs, mesh)).items():
                     saved[f"lm_g/{tag}/{key}"] = t.numpy()
                 saved[f"lm_loss/{tag}"] = loss.numpy()
-                gnorm = base.grad_norm(grads, mesh)  # None where no leaf is split
+                gnorm = base.grad_norm(grads, mesh, pspecs)  # None where no leaf is split
                 saved[f"lm_gnorm/{tag}"] = (adamw.global_norm(grads) if gnorm is None else gnorm).numpy()
                 step = base.train_step_fn(lambda q, b: T.loss_fn(tcfg, q, b, mesh=mesh), mesh,
-                                          adamw.AdamWConfig(**OPT))
+                                          adamw.AdamWConfig(**OPT), specs_of=lm_param_specs)
                 new_p, _, loss2 = step(placed, adamw.init(placed), batch)
                 for key, t in flat(gather_tree(new_p, pspecs, mesh)).items():
                     saved[f"lm_new/{tag}/{key}"] = t.numpy()
@@ -407,7 +410,7 @@ def test_one_by_one_mesh_is_moe_fwd_bit_for_bit(mesh, case):
 
 
 def test_one_by_one_transformer_ep_is_dense_bit_for_bit(mesh):
-    from repro_torch.distributed.sharding import ep_param_specs, shard_tree
+    from repro_torch.distributed.sharding import lm_param_specs, shard_tree
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import MoeConfig
 
@@ -416,15 +419,18 @@ def test_one_by_one_transformer_ep_is_dense_bit_for_bit(mesh):
     cfg = ns["lm_config"](T.TransformerConfig, MoeConfig)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.randint(0, 128, (2, 8), generator=torch.Generator().manual_seed(1))
-    placed = shard_tree(params, ep_param_specs(params), mesh)
+    placed = shard_tree(params, lm_param_specs(params), mesh)
     with torch.no_grad():
         logits, aux = T.forward(cfg, placed, tokens, mesh=mesh)
         logits0, aux0 = T.forward(cfg, params, tokens)
     assert torch.equal(logits, logits0) and torch.equal(aux, aux0)
+    # A dense config on a mesh runs the JAX layout (tensor parallel), here
+    # the meshless forward too.
     dense = dataclasses.replace(cfg, moe=None)
-    with pytest.raises(ValueError, match="needs an MoE config"):
-        T.forward(dense, T.init_params(dense, torch.Generator().manual_seed(0), device="cpu"), tokens,
-                  mesh=mesh)
+    dense_params = T.init_params(dense, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        got, want = T.forward(dense, dense_params, tokens, mesh=mesh), T.forward(dense, dense_params, tokens)
+    assert torch.equal(got[0], want[0])
 
 
 def _grads(fn, p, x, w):

@@ -238,6 +238,8 @@ def test_dryrun_writes_a_line_per_cell(tmp_path, capsys, arch, shape):
     assert r["memory_analysis"] is None and "no compiler" in r["memory_analysis_reason"]
     assert set(r["bytes_per_device"]) == {"params", "opt_state", "batch"}
     assert all(r["bytes_per_device_as_run"][k] >= v for k, v in r["bytes_per_device"].items())
+    if arch == "deepseek-moe-16b":  # an LM cell runs the JAX layout
+        assert r["bytes_per_device_as_run"] == r["bytes_per_device"]
     assert set(r["collectives"]) == {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                                      "collective-permute", "total_bytes", "total_count"}
     assert r["collectives"]["all-reduce"]["count"] > 0  # the gradients, summed over the data axis
@@ -247,7 +249,8 @@ def test_dryrun_writes_a_line_per_cell(tmp_path, capsys, arch, shape):
     if arch == "deepseek-moe-16b":
         # expert parallel: rank 0 holds 64 / 16 experts of each of the 28 layers
         assert r["output_shapes"]["0/layers/moe/w_gate"] == [[28, 4, 2048, 1408], "bfloat16"]
-        assert r["output_shapes"]["0/layers/attn/wq"] == [[28, 2048, 2048], "bfloat16"]
+        # tensor parallel: its 2048 / 16 columns of wq
+        assert r["output_shapes"]["0/layers/attn/wq"] == [[28, 2048, 128], "bfloat16"]
     assert f"[dryrun] {arch} × {shape} × 16x16: OK" in capsys.readouterr().out
 
 
@@ -302,7 +305,9 @@ def test_kernels_take_meta_to_their_plain_versions():
 def test_rank_args_cut_the_batch_and_the_experts():
     """Rank 0's arguments of qwen3-moe-30b-a3b's train cell on the single
     mesh: its data shard of the batch, its 8 of 128 experts (and their
-    moments), every other leaf whole."""
+    moments), and every other leaf as the JAX layout splits it (vocabulary
+    rows of the embedding, columns of wq); the decode cell's cache is its
+    data shard's sequences and its 2,048 of 32,768 positions."""
     from repro_torch.configs import get
     from repro_torch.configs.base import rank_args
 
@@ -312,12 +317,13 @@ def test_rank_args_cut_the_batch_and_the_experts():
     assert batch["tokens"].shape == (16, 4096)
     assert params["layers"]["moe"]["w_up"].shape == (48, 8, 2048, 768)
     assert opt["v"]["layers"]["moe"]["w_down"].shape == (48, 8, 768, 2048)
-    assert params["embed"].shape == spec.abstract_args[0]["embed"].shape == (151_936, 2048)
-    assert params["layers"]["attn"]["wq"].shape == (48, 2048, 4096)
+    assert spec.abstract_args[0]["embed"].shape == (151_936, 2048)
+    assert params["embed"].shape == (151_936 // 16, 2048)
+    assert params["layers"]["attn"]["wq"].shape == (48, 2048, 4096 // 16)
     decode = get("qwen3-moe-30b-a3b").dryrun("decode_32k", mesh)
     p_dec, token, (ck, _) = rank_args(decode, mesh)
-    assert p_dec["layers"]["moe"]["w_up"].shape == (48, 128, 2048, 768)  # decode runs dense
-    assert token.shape == (8,) and ck.shape == (48, 8, 32768, 4, 128)
+    assert p_dec["layers"]["moe"]["w_up"].shape == (48, 8, 2048, 768)  # decode runs expert parallel
+    assert token.shape == (8,) and ck.shape == (48, 8, 32768 // 16, 4, 128)
 
 
 def test_registry_is_whole_after_one_config_import():

@@ -9,8 +9,7 @@ replicated specs and the batch, KV-cache and node specs. Then the mesh:
 its collectives (``all_reduce``, ``all_gather``, ``reduce_scatter``) run
 along one axis, and ``shard_tree`` then ``gather_tree`` round-trips a tree
 bit for bit at 4 gloo ranks on a 2×2 mesh (and at 2×1 and 1×2 layouts of
-the same ranks' meshes), with the LM specs and with the EP placement
-(``ep_param_specs``: the routed experts split, the rest whole).
+the same ranks' meshes), with the LM specs.
 """
 
 import json
@@ -162,17 +161,6 @@ def test_one_rank_mesh_places_without_copies(mesh):
         assert a is b and b is c
 
 
-@pytest.mark.parametrize("name", ["dense", "moe"])
-def test_ep_param_specs_split_only_the_routed_experts(name):
-    jcfg, cfg = _lm_configs()[name]
-    want = _jax_flat(jax_sharding.lm_param_specs(jax_transformer.init_abstract(jcfg)))
-    got = _port_flat(sharding.ep_param_specs(transformer.init_abstract(cfg)))
-    experts = {f"layers.moe.{k}" for k in ("w_gate", "w_up", "w_down")} if name == "moe" else set()
-    assert got.keys() == want.keys()
-    assert {p: got[p] for p in experts} == {p: want[p] for p in experts}
-    assert all(got[p] == () for p in got.keys() - experts)
-
-
 def test_shard_tree_rejects_what_does_not_fit():
     wide = types.SimpleNamespace(shape={"data": 1, "model": 4}, axis_index=lambda axes: 0)
     with pytest.raises(ValueError, match="does not split"):
@@ -249,12 +237,8 @@ _RANK = textwrap.dedent('''
                 rec["slices"] = all(torch.equal(flat(placed)[p], want[p]) for p in want)
                 rec["local_shapes"] = {p: list(t.shape) for p, t in flat(placed).items()
                                        if p in ("embed", "layers.moe.w_gate", "layers.attn.wq", "ln_f.scale")}
-                ep = sharding.ep_param_specs(params)
-                placed = sharding.shard_tree(params, ep, mesh)
-                rec["ep_round_trip"] = all(torch.equal(a, b) for a, b in zip(
-                    flat(params).values(), flat(sharding.gather_tree(placed, ep, mesh)).values()))
-                rec["ep_shapes"] = {p: list(t.shape) for p, t in flat(placed).items()
-                                    if p in ("embed", "layers.moe.w_gate", "layers.moe.shared.w_down")}
+                rec["shared_shapes"] = {p: list(t.shape) for p, t in flat(placed).items()
+                                        if p in ("layers.moe.shared.w_gate", "layers.moe.shared.w_down")}
                 out[str(model)] = rec
             gathered = [None] * world
             dist.all_gather_object(gathered, out)
@@ -317,7 +301,6 @@ def test_shard_then_gather_round_trips(four_ranks, model):
         data = 4 // model
         assert rec["local_shapes"] == {"embed": [128 // model, 32], "layers.attn.wq": [2, 32, 32 // model],
                                        "layers.moe.w_gate": [2, 4 // model, 32, 16], "ln_f.scale": [32]}
-        assert rec["ep_round_trip"]
-        assert rec["ep_shapes"] == {"embed": [128, 32], "layers.moe.w_gate": [2, 4 // model, 32, 16],
-                                    "layers.moe.shared.w_down": [2, 16, 32]}
+        assert rec["shared_shapes"] == {"layers.moe.shared.w_gate": [2, 32, 16 // model],
+                                        "layers.moe.shared.w_down": [2, 16 // model, 32]}
         assert data * model == 4
