@@ -184,7 +184,19 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     ``wo`` rows a rank, q gathered), 16 ``wgmma`` launches, the summed parts
     against the dense attention; (d) granite's decode attention against a
     32,768-position cache split over 16 model ranks (split-K, log-sum-exp
-    combine) against the dense ``decode_attention``. Phase 0 also times a
+    combine) against the dense ``decode_attention``;
+18. after phase 17, the paper's Stress and Dynamic tables on a mesh
+    (budget 30 s; past 1,050 s by the script's clock it runs Twitter only):
+    ``PaperBench`` at ``scale=1.0``, k=4, on Twitter and GIS, its caches
+    seeded with phase 2's graphs, DiDiC maps and states and phase 6's logs
+    (10,000 and 500 ops), on an NCCL group of one rank: (a) the Stress
+    table with ``maintenance="shared"`` (sharded replay, device-scan
+    dynamism, the single-device DiDiC), its base, damaged and repaired rows
+    equal to the figures phase 6 measured, rounded as the table rounds
+    them; (b) the Dynamic table with the mesh DiDiC (``"auto"``): the row
+    names, each round's T_G % within ``0.25·ref + 0.01`` of phase 6's
+    maintained round, round 5 below phase 6's unmaintained map, and
+    ``cycle_s`` beside phase 6's meshless seconds. Phase 0 also times a
     fixed host-only workload, to read the script's time against.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
@@ -196,9 +208,9 @@ and phase 10's trainer runs on the card
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables, phase 8's uninterrupted, recovered and
 online runs, phase 12's sharded GIS replays, phase 13's online runs and
-phase 14's replays and runs (``frontier_gather``), and phase 13's mesh
-forward, phase 15's EP training steps and phase 17's TP training step and
-model ranks' attention (``flash_attention``);
+phase 14's replays and runs and phase 18's tables (``frontier_gather``),
+and phase 13's mesh forward, phase 15's EP training steps and phase 17's
+TP training step and model ranks' attention (``flash_attention``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``), nor does
@@ -855,12 +867,15 @@ def phase6_dataset(name, graph, start, dev, main_launches, held):
     # logs, which applied to the start map give the unmaintained map.
     def dynamic():
         svc = _service(graph, config, dev, parts0, state0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         run, counts = _counted(lambda: DynamicExperimentRuntime(svc, "random", seed=0).run(
             ops, n_slices=5, amount=0.05, maintain_every=1), main_launches)
+        run_s = time.perf_counter() - t0
         collect(svc)
-        return run, counts["frontier_gather"]
+        return run, counts["frontier_gather"], run_s
 
-    run, n = dynamic()
+    run, n, dynamic_s = dynamic()
     fg += n
     out["dynamic"] = [{"T_G_percent": 100 * r.percent_global, "migrated": r.migrated} for r in run.records]
     stream = InsertPartitioner("random", k, seed=0)
@@ -876,8 +891,13 @@ def phase6_dataset(name, graph, start, dev, main_launches, held):
         + ", ".join(f"{r['T_G_percent']:.4f} ({r['migrated']})" for r in out["dynamic"]))
     check(_pg(run.final) < _pg(res),
           f"{name} dynamic: maintained T_G % after 5 slices {_pg(run.final):.4f} < unmaintained {_pg(res):.4f}")
+    # What phase 18 holds its mesh tables to.
+    held[name]["phase6"] = {"ops": ops, "parts": parts0, "config": config, "stress": out["stress"],
+                            "dynamic": [r["T_G_percent"] for r in out["dynamic"]],
+                            "unmaintained": out["dynamic_unmaintained_T_G_percent"],
+                            "dynamic_s": dynamic_s}
     if name == "twitter":
-        again, n = dynamic()
+        again, n, _ = dynamic()
         fg += n
         check([vars(r) for r in again.records] == [vars(r) for r in run.records]
               and np.array_equal(again.parts, run.parts),
@@ -3927,6 +3947,144 @@ def phase17(dev, smi, main_launches, t_start):
         + (", cut" if cut else "") + ")")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18
+# ---------------------------------------------------------------------------
+PHASE18_BUDGET_S = 30.0
+PHASE18_CUT_AT_S = 1050.0       # past this on the script's clock, phase 18 runs Twitter only
+PHASE18_DATASETS = ("twitter", "gis")
+PHASE18_BAND = (0.25, 0.01)     # |mesh - meshless| <= 0.25 ref + 0.01 (fractions): another DiDiC's sums
+
+
+def _phase18_bench(names, held, dev):
+    """The paper bench at ``scale=1.0`` with phase 2's graphs (host arrays),
+    DiDiC maps and diffusion states and phase 6's logs in its caches, so it
+    loads no graph and runs no initial DiDiC. Returns it and whether each
+    log, map and DiDiC config is shown to be the one phase 6 measured."""
+    from repro_torch import convert
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.paper_tables import PaperBench
+
+    cfg = PaperExperimentConfig(scale=1.0, n_ops=N_OPS, n_ops_gis=N_OPS_GIS_DYNAMIC, datasets=names)
+    bench = PaperBench(cfg, device=dev)
+    same = {}
+    for name in names:
+        h, six = held[name], held[name]["phase6"]
+        bench._graphs[name] = h["graph"]
+        bench._ops[name] = six["ops"]
+        bench._parts[(name, "didic", 4)] = h["parts"].copy()
+        bench._parts[(name, "didic_state", 4)] = convert.didic_state_from_arrays(*h["state"], device=dev)
+        n_ops = cfg.n_ops_gis if name == "gis" else cfg.n_ops
+        same[name] = (bench.ops(name) is six["ops"] and six["ops"].n_ops == n_ops
+                      and np.array_equal(bench.partition(name, "didic", 4), six["parts"])
+                      and cfg.didic(name, 4) == six["config"])
+    return bench, same
+
+
+def _phase18_table(bench, name, fn, main_launches):
+    """One table on one dataset, a main-path run: its rows, seconds and
+    launch counts."""
+    bench.cfg = dataclasses.replace(bench.cfg, datasets=(name,))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, counts = _counted(fn, main_launches)
+    return {r.name: r for r in rows}, time.perf_counter() - t0, counts
+
+
+def phase18(held, dev, smi, main_launches, t_start):
+    """The paper's Stress and Dynamic tables on a mesh (module docstring,
+    phase 18)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.paper_didic import PaperExperimentConfig
+    from repro_torch.launch.mesh import make_replay_mesh
+    from repro_torch.paper_tables import PaperBench, row_names
+
+    t_phase = time.perf_counter()
+    cut = t_phase - t_start > PHASE18_CUT_AT_S
+    names = ("twitter",) if cut else PHASE18_DATASETS
+    say(f"phase 18: the paper's Stress and Dynamic tables on a mesh, {', '.join(names)} at scale=1.0, k=4 "
+        f"(budget {PHASE18_BUDGET_S:.0f} s" + (", cut to Twitter: past 1,050 s" if cut else "") + ")")
+    bench, same = _phase18_bench(names, held, dev)
+    out = {"phase": 18, "card": smi, "budget_s": PHASE18_BUDGET_S, "cut": cut, "datasets": list(names)}
+    ref = {}
+    for name in names:
+        six = held[name]["phase6"]
+        if same[name]:
+            say(f"phase 18: {name}: the log, the DiDiC map and its config are phase 6's; held to phase 6's figures")
+            ref[name] = {"stress": six["stress"], "dynamic": six["dynamic"], "dynamic_s": six["dynamic_s"]}
+            continue
+        # Not shown to be phase 6's inputs: the meshless tables on these
+        # inputs are the reference instead.
+        say(f"phase 18: {name}: the log or map differs from phase 6's; held to the meshless tables instead")
+        meshless = PaperBench(bench.cfg, device=dev)
+        meshless._graphs, meshless._ops, meshless._parts = bench._graphs, bench._ops, dict(bench._parts)
+        st, _, _ = _phase18_table(meshless, name, meshless.stress_experiment, {})
+        dy, dy_s, _ = _phase18_table(meshless, name, meshless.dynamic_experiment, {})
+        ref[name] = {"stress": {k: st[f"stress/{name}/{k}_pg"].value for k in ("base", "damaged", "repaired")},
+                     "dynamic": [dy[f"dynamic/{name}/round{i + 1}/percent_global"].value for i in range(5)],
+                     "dynamic_s": dy_s}
+    t0 = time.perf_counter()
+    _open_nccl_world1()
+    try:
+        mesh = make_replay_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.size == 1,
+              f"phase 18: an NCCL group of {mesh.size} rank on {mesh.device}")
+        out["group_s"] = time.perf_counter() - t0
+        for name in names:
+            one = PaperExperimentConfig(scale=1.0, datasets=(name,))
+            res = out[name] = {}
+            # (a) Stress, maintenance="shared": sharded replay, device-scan
+            # dynamism, the single-device DiDiC; bit for bit phase 6's rows.
+            rows, res["stress_s"], counts = _phase18_table(
+                bench, name, lambda: bench.stress_experiment(mesh=mesh, maintenance="shared"), main_launches)
+            want = ref[name]["stress"]
+            got = {k: rows[f"stress/{name}/{k}_pg"].value for k in ("base", "damaged", "repaired")}
+            check(list(rows) == row_names(one, "stress")
+                  and all(got[k] == round(want[k], 3) for k in got),
+                  f"phase 18 (a): {name} Stress on the mesh (shared DiDiC) == phase 6's rows: base {got['base']}, "
+                  f"damaged {got['damaged']}, repaired {got['repaired']} T_G %")
+            res["stress"] = got
+            res["stress_launches"] = counts
+            # (b) Dynamic, maintenance="auto": the mesh DiDiC, seeded from
+            # the map; in the band of phase 6's maintained rounds.
+            rows, res["dynamic_s"], counts = _phase18_table(
+                bench, name, lambda: bench.dynamic_experiment(mesh=mesh), main_launches)
+            check(list(rows) == row_names(one, "dynamic"),
+                  f"phase 18 (b): {name} Dynamic row names == row_names(cfg, \"dynamic\")")
+            rounds = [rows[f"dynamic/{name}/round{i + 1}/percent_global"].value for i in range(5)]
+            migrated = [rows[f"dynamic/{name}/round{i + 1}/migrated_vertices"].value for i in range(5)]
+            cyc = rows[f"dynamic/{name}/cycle_s"]
+            a, b = PHASE18_BAND
+            gaps = [abs(x - y) / 100 - (a * y / 100 + b) for x, y in zip(rounds, ref[name]["dynamic"])]
+            check(max(gaps) <= 0, f"phase 18 (b): {name} Dynamic on the mesh DiDiC, every round's T_G % "
+                                  f"within {a}·ref + {b} of phase 6's maintained round: "
+                                  + ", ".join(f"{x:.3f} vs {y:.4f}" for x, y in zip(rounds, ref[name]["dynamic"])))
+            unmaintained = held[name]["phase6"]["unmaintained"]
+            check(rounds[-1] < unmaintained,
+                  f"phase 18 (b): {name} round 5 T_G % {rounds[-1]:.3f} < phase 6's unmaintained {unmaintained:.4f}")
+            check(cyc.derived.endswith("(resident device replay)"),
+                  f"phase 18 (b): {name} cycle_s says {cyc.derived!r}")
+            res.update(dynamic=rounds, migrated=migrated, cycle_s=cyc.value,
+                       meshless_dynamic_s=ref[name]["dynamic_s"], dynamic_launches=counts)
+            say(f"phase 18: {name} Dynamic cycle_s {cyc.value} s on the mesh against phase 6's meshless "
+                f"{ref[name]['dynamic_s']:.2f} s for the same 5 slices; Stress {res['stress_s']:.2f} s, "
+                f"Dynamic {res['dynamic_s']:.2f} s")
+            if name == "gis":
+                n = counts["frontier_gather"] + res["stress_launches"]["frontier_gather"]
+                check(n > 0, f"phase 18: the GIS rows went through frontier_gather ({n} launches: Stress "
+                             f"{res['stress_launches']['frontier_gather']}, Dynamic {counts['frontier_gather']}; "
+                             f"a resident fold of the log re-solves nothing)")
+    finally:
+        dist.destroy_process_group()
+    del bench
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps(out))
+    say(f"phase 18: {out['phase_s']:.1f} s (budget {PHASE18_BUDGET_S:.0f} s"
+        + (", over" if out["phase_s"] > PHASE18_BUDGET_S else "") + (", cut" if cut else "") + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -3959,6 +4117,8 @@ def main() -> int:
     held = {}
     for name, graph in graphs.items():
         starts[name] = phase2_dataset(name, graph, dev, main_launches, held)
+        # phase 2's diffusion state, copied to the host for phase 18
+        held[name]["state"] = tuple(getattr(starts[name][1], f).cpu().numpy() for f in ("w", "l", "parts", "beta"))
         say(f"phase 2 {name} done at {time.perf_counter() - t_start:.1f} s")
     gis_small, kernel_parts = phase3(dev, main_launches)
     say(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
@@ -4014,13 +4174,15 @@ def main() -> int:
     say(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
     phase17(dev, smi, main_launches, t_start)
     say(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+    phase18(held, dev, smi, main_launches, t_start)
+    say(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
     say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
         "replays of phase 12, the mesh forward and the mesh online runs of phase 13, the replays and "
         "runs of phase 14, the EP training steps of phase 15, the TP step and the model ranks' "
-        "attention of phase 17): " + json.dumps(main_launches, sort_keys=True))
+        "attention of phase 17, the mesh tables of phase 18): " + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

@@ -234,13 +234,17 @@ class DynamicRunResult:
 
 
 class DynamicExperimentRuntime:
-    """Drive the Insert/Stress/Dynamic experiment cycle on a graph service."""
+    """Drive the Insert/Stress/Dynamic experiment cycle on a graph service.
+
+    ``scheduler`` decides which maintained maps migrate (default: every
+    planned move, ``MigrationScheduler(min_move_fraction=0.0)``)."""
 
     def __init__(
         self,
         service: PartitionedGraphService,
         insert_method: str = "random",
         seed: int = 0,
+        scheduler: Optional[MigrationScheduler] = None,
     ):
         self.service = service
         self.insert = InsertPartitioner(
@@ -249,11 +253,19 @@ class DynamicExperimentRuntime:
         )
         # The paper's Dynamic experiment migrates on a fixed interval, so
         # the default scheduler applies every planned move.
-        self.scheduler = MigrationScheduler(min_move_fraction=0.0)
+        self.scheduler = (scheduler if scheduler is not None
+                          else MigrationScheduler(min_move_fraction=0.0))
         # Loop state, which a snapshot captures and a restore puts back.
         self._baseline: Optional[TrafficResult] = None
         self._result: Optional[TrafficResult] = None
         self._records: List[SliceRecord] = []
+
+    @property
+    def last_result(self) -> Optional[TrafficResult]:
+        """The latest traffic measurement, which feeds the next slice's
+        ``least_traffic`` policy: set by :meth:`begin` and :meth:`run_slice`,
+        put back by a snapshot restore."""
+        return self._result
 
     def begin(self, ops: OpLog) -> TrafficResult:
         """Measure the baseline and arm the per-slice loop."""

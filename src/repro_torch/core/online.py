@@ -56,7 +56,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.fault import SimulatedCrash
-from repro_torch.core.framework import PartitionedGraphService
+from repro_torch.core.framework import MigrationScheduler, PartitionedGraphService
 from repro_torch.core.traffic import OpLog, execute_ops, generate_ops
 from repro_torch.graphs.generators import FS_FILE, FS_FOLDER
 from repro_torch.graphs.structure import Graph
@@ -205,16 +205,19 @@ class BackgroundMaintenance:
     rollback, the served map copied into a working map); each tick then
     advances the round by ``budget_iterations`` refinement iterations on
     the working map, and after ``round_iterations`` the round commits
-    through the Migration-Scheduler. The service serves the committed map
-    throughout. Structural growth mid-round invalidates the working map,
-    and the round restarts from the grown map on its next tick.
+    through the Migration-Scheduler: ``scheduler`` where one is given,
+    else the service's own, which then plans, commits and records. The
+    service serves the committed map throughout. Structural growth
+    mid-round invalidates the working map, and the round restarts from the
+    grown map on its next tick.
     """
 
-    def __init__(self, service: PartitionedGraphService, *,
+    def __init__(self, service: PartitionedGraphService,
+                 scheduler: Optional[MigrationScheduler] = None, *,
                  every: int = 4, budget_iterations: int = 1,
                  round_iterations: int = 4):
         self.service = service
-        self.scheduler = service.scheduler
+        self.scheduler = scheduler if scheduler is not None else service.scheduler
         self.every = int(every)
         self.budget_iterations = int(budget_iterations)
         self.round_iterations = int(round_iterations)
@@ -431,19 +434,21 @@ class OnlineServer:
     def drained(self) -> bool:
         return self._cursor >= len(self._arrivals) and self._queued == 0
 
-    def run(self, max_ticks: int = 100_000) -> OnlineRunResult:
-        """Serve the submitted stream to completion. With a fault plan
-        attached, an injected
+    def run(self, max_ticks: int = 100_000, supervise: bool = True) -> OnlineRunResult:
+        """Serve the submitted stream to completion. With ``supervise`` and
+        a fault plan attached, an injected
         :class:`~repro_torch.core.fault.SimulatedCrash` is counted as a
         recovery in the health counters and the tick retried,
-        bit-identically (crash events fire once)."""
+        bit-identically (crash events fire once). Without ``supervise`` the
+        crash propagates out of ``run``; the tick left nothing half done,
+        so a later ``run()`` serves the rest as a supervised run would."""
         while not self.drained:
             if self.clock >= max_ticks:
                 raise RuntimeError(
                     f"stream not drained after {max_ticks} ticks "
                     f"({self._queued} queued, cursor {self._cursor}/{len(self._arrivals)})"
                 )
-            if self.service.fault_plan is not None:
+            if supervise and self.service.fault_plan is not None:
                 t0 = _time.perf_counter()
                 try:
                     self.tick()

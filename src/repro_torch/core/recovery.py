@@ -147,10 +147,16 @@ def _from_npz(blob: bytes) -> Tuple[Dict, Dict[str, np.ndarray]]:
     return meta, arrays
 
 
+def _own(a) -> np.ndarray:
+    """A C-contiguous copy: a snapshot kept in memory must share no
+    storage with the live runtime, which updates its arrays in place."""
+    return np.array(a, copy=True, order="C")
+
+
 def _result_to_arrays(result: TrafficResult, prefix: str,
                       arrays: Dict[str, np.ndarray]) -> None:
     for f in _RESULT_FIELDS:
-        arrays[f"{prefix}__{f}"] = np.ascontiguousarray(getattr(result, f))
+        arrays[f"{prefix}__{f}"] = _own(getattr(result, f))
 
 
 def _result_from_arrays(prefix: str, arrays: Dict[str, np.ndarray]) -> TrafficResult:
@@ -195,7 +201,9 @@ class ServiceSnapshot:
     :meth:`to_bytes`/:meth:`from_bytes` round-trip it through compressed
     ``npz`` (the durable form). :meth:`verify` recomputes the checksum and
     raises :class:`SnapshotIntegrityError` on a mismatch; a restore always
-    verifies first.
+    verifies first. A capture copies every array it takes and a restore
+    gives back copies (growth concatenates), so a snapshot kept in memory
+    (no round trip) stays what it captured however often it is restored.
     """
 
     meta: Dict
@@ -249,19 +257,19 @@ class ServiceSnapshot:
             "records": [dataclasses.asdict(r) for r in runtime._records],
         }
         arrays: Dict[str, np.ndarray] = {
-            "parts": np.ascontiguousarray(svc.parts),
-            "delta_senders": np.ascontiguousarray(graph.senders[base_graph.n_edges:]),
-            "delta_receivers": np.ascontiguousarray(graph.receivers[base_graph.n_edges:]),
-            "delta_weights": np.ascontiguousarray(graph.edge_weight[base_graph.n_edges:]),
+            "parts": _own(svc.parts),
+            "delta_senders": _own(graph.senders[base_graph.n_edges:]),
+            "delta_receivers": _own(graph.receivers[base_graph.n_edges:]),
+            "delta_weights": _own(graph.edge_weight[base_graph.n_edges:]),
             # np.inf round-trips through arrays, not through json
             "scheduler_baseline": np.float64(runtime.scheduler.baseline_percent_global),
             "logger_infos": np.array(
                 [[i.n_vertices, i.n_edges, i.local_traffic, i.global_traffic]
                  for i in svc.logger.infos], dtype=np.int64),
-            "placement_hot": np.ascontiguousarray(svc.placement.hot),
+            "placement_hot": _own(svc.placement.hot),
             # The hot-selection signal: without it a restored run's next
             # refresh_placement would select from a cold accumulator.
-            "logger_vertex_traffic": np.ascontiguousarray(svc.logger.vertex_traffic),
+            "logger_vertex_traffic": _own(svc.logger.vertex_traffic),
         }
         attr_delta_keys = []
         # sorted: the npz member order is part of the serialized bytes
@@ -269,8 +277,7 @@ class ServiceSnapshot:
             if old.shape[0] != base_graph.n_nodes:
                 continue  # not per-node metadata; carried as-is by growth
             attr_delta_keys.append(key)
-            arrays[f"attr_delta__{key}"] = np.ascontiguousarray(
-                graph.node_attrs[key][base_graph.n_nodes:])
+            arrays[f"attr_delta__{key}"] = _own(graph.node_attrs[key][base_graph.n_nodes:])
         meta["attr_delta_keys"] = sorted(attr_delta_keys)
         if svc.runtime.state is not None:
             st = svc.runtime.state
@@ -542,9 +549,9 @@ class RecoveryStats:
     journal_replayed: int = 0
     journal_compacted: int = 0
     resumed_from: List[int] = dataclasses.field(default_factory=list)
-    # Per snapshot: its npz size and the seconds to capture it, round trip
-    # included; per recovery: the seconds
-    # to decode and restore the snapshot.
+    # Per snapshot: its npz size (round-tripped snapshots only) and the
+    # seconds to capture it, round trip included; per recovery: the seconds
+    # to decode (when round-tripped) and restore the snapshot.
     snapshot_bytes: List[int] = dataclasses.field(default_factory=list)
     capture_s: List[float] = dataclasses.field(default_factory=list)
     restore_s: List[float] = dataclasses.field(default_factory=list)
@@ -565,6 +572,7 @@ def run_with_recovery(
     journal: Optional[DynamismJournal] = None,
     retry_policy: Optional[RetryPolicy] = None,
     snapshot_every: int = 4,
+    snapshot_roundtrip: bool = True,
     max_recoveries: int = 8,
     on_slice: Optional[Callable[[int, TrafficResult], None]] = None,
 ) -> Tuple["DynamicRunResult", RecoveryStats]:
@@ -572,9 +580,13 @@ def run_with_recovery(
 
     ``make_runtime`` builds a fresh runtime over a fresh service on
     ``base_graph``; it is called once at the start and once per recovery,
-    so nothing survives a crash but the snapshot and the journal. Every
-    snapshot passes through its ``npz`` bytes on capture and on restore, so
-    recovery consumes exactly what durable storage would hold. On a crash the dead runtime is dropped and
+    so nothing survives a crash but the snapshot and the journal. With
+    ``snapshot_roundtrip`` (the default) every snapshot passes through its
+    ``npz`` bytes on capture and on restore, so recovery consumes exactly
+    what durable storage would hold; without it the captured snapshot is
+    kept in memory and restored as it is (it shares no storage with the
+    runtime), and ``RecoveryStats.snapshot_bytes`` gets no entry. On a
+    crash the dead runtime is dropped and
     collected before the new one is built, so its grown graphs, engines and
     DiDiC products are freed and device memory does not grow with the
     number of recoveries. The run resumes at the latest snapshot; slices
@@ -599,9 +611,10 @@ def run_with_recovery(
     def take_snapshot(rt, next_slice: int) -> ServiceSnapshot:
         t0 = time.perf_counter()
         snap = ServiceSnapshot.capture(rt, base_graph, next_slice=next_slice)
-        blob = snap.to_bytes()
-        snap = ServiceSnapshot.from_bytes(blob)
-        stats.snapshot_bytes.append(len(blob))
+        if snapshot_roundtrip:
+            blob = snap.to_bytes()
+            snap = ServiceSnapshot.from_bytes(blob)
+            stats.snapshot_bytes.append(len(blob))
         stats.capture_s.append(time.perf_counter() - t0)
         stats.snapshots_taken += 1
         stats.journal_compacted += journal.compact(before_slice=next_slice)
@@ -642,7 +655,8 @@ def run_with_recovery(
             gc.collect()
             runtime = fresh_runtime()
             t1 = time.perf_counter()
-            snapshot = ServiceSnapshot.from_bytes(snapshot.to_bytes())
+            if snapshot_roundtrip:
+                snapshot = ServiceSnapshot.from_bytes(snapshot.to_bytes())
             snapshot.restore_into(runtime, base_graph)
             stats.restore_s.append(time.perf_counter() - t1)
             i = snapshot.next_slice

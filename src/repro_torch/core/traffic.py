@@ -118,6 +118,11 @@ class TrafficResult:
         """T_G% of Eq. 7.2."""
         return self.global_ / max(self.total, 1e-12)
 
+    def sorted_percent_global(self) -> np.ndarray:
+        """Per-op global fraction, sorted descending (the Figs 7.1–7.3 curves)."""
+        frac = self.per_op_global / np.maximum(self.per_op_total, 1e-12)
+        return np.sort(frac)[::-1]
+
 
 # ===========================================================================
 # Operation-log generation

@@ -210,6 +210,23 @@ class BlockEll:
     def padded_rows(self) -> int:
         return self.n_block_rows * self.block_size
 
+    def density(self) -> float:
+        """Stored blocks over the blocks of the padded square."""
+        nnzb = float(self.block_mask.sum())
+        total = (self.padded_rows / self.block_size) ** 2
+        return nnzb / max(total, 1.0)
+
+    def to_dense(self) -> np.ndarray:
+        """The logical ``[n_rows, n_cols]`` matrix (host numpy)."""
+        bs = self.block_size
+        out = np.zeros((self.padded_rows, self.padded_rows), dtype=self.blocks.dtype)
+        for i in range(self.n_block_rows):
+            for j in range(self.max_nnzb):
+                if self.block_mask[i, j] > 0:
+                    c = int(self.block_cols[i, j])
+                    out[i * bs:(i + 1) * bs, c * bs:(c + 1) * bs] += self.blocks[i, j]
+        return out[: self.n_rows, : self.n_cols]
+
 
 @dataclasses.dataclass(frozen=True)
 class PaddedNeighbors:
@@ -231,6 +248,10 @@ class PaddedNeighbors:
     @property
     def n_nodes(self) -> int:
         return self.nbr.shape[0]
+
+    @property
+    def max_deg(self) -> int:
+        return self.nbr.shape[1]
 
     @property
     def n_spill(self) -> int:
@@ -545,6 +566,46 @@ class Graph:
         )
         cache[key] = bell
         return bell
+
+    # ------------------------------------------------------------- utilities
+    def subgraph(self, node_mask: np.ndarray) -> "Graph":
+        """Induced subgraph, its nodes renumbered densely. Node attributes
+        whose first extent is not ``n_nodes`` are left out."""
+        node_mask = np.asarray(node_mask, dtype=bool)
+        new_id = np.full(self.n_nodes, -1, dtype=np.int64)
+        kept = np.nonzero(node_mask)[0]
+        new_id[kept] = np.arange(kept.shape[0])
+        e_keep = node_mask[self.senders] & node_mask[self.receivers]
+        attrs = {k: v[kept] for k, v in self.node_attrs.items() if v.shape[0] == self.n_nodes}
+        return Graph(
+            n_nodes=int(kept.shape[0]),
+            senders=new_id[self.senders[e_keep]],
+            receivers=new_id[self.receivers[e_keep]],
+            edge_weight=self.edge_weight[e_keep],
+            node_attrs=attrs,
+            name=self.name + "_sub",
+        )
+
+    def clustering_stats(self, sample: int = 2000, seed: int = 0) -> float:
+        """Approximate global clustering coefficient over ``sample`` vertices
+        drawn without replacement."""
+        indptr, indices, _ = self.undirected_csr
+        rng = np.random.default_rng(seed)
+        nodes = rng.choice(self.n_nodes, size=min(sample, self.n_nodes), replace=False)
+        coeffs = []
+        for v in nodes:
+            nbrs = indices[indptr[v]:indptr[v + 1]]
+            d = nbrs.shape[0]
+            if d < 2:
+                coeffs.append(0.0)
+                continue
+            nbr_set = set(nbrs.tolist())
+            links = 0
+            for u in nbrs:
+                row = indices[indptr[u]:indptr[u + 1]]
+                links += sum(1 for x in row if int(x) in nbr_set)
+            coeffs.append(links / (d * (d - 1)))
+        return float(np.mean(coeffs)) if coeffs else 0.0
 
     def summary(self) -> str:
         return (

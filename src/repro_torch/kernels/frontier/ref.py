@@ -5,6 +5,9 @@ Same function as ``csrc/frontier_gather.cu`` on the same arguments
 ``mode="sum"``, ``+inf`` in padded slots for ``mode="min"``; ``tail``
 holds each row's over-cap slots (:class:`SpillTail`).
 
+``mask`` (``[V, D]`` {0, 1}, the JAX reference's fourth argument) masks an
+unmasked ``w`` here instead: 0 for ``sum``, ``+inf`` for ``min``.
+
 ``mode="sum"``:  out[v, c] = Σ_j  w[v, j] · x[nbr[v, j], c]  (+ Σ over v's tail)
 ``mode="min"``:  out[v, c] = min_j ( x[nbr[v, j], c] + w[v, j] )  (and over v's tail)
 
@@ -35,10 +38,16 @@ def frontier_gather_ref(
     x: torch.Tensor,      # [N, C] float32
     nbr: torch.Tensor,    # [V, D] integer in-neighbour ids
     w: torch.Tensor,      # [V, D] float32 (masked as above)
+    mask: Optional[torch.Tensor] = None,  # [V, D] {0, 1}, when w is not masked
     mode: str = "sum",
     tail: Optional[SpillTail] = None,
 ) -> torch.Tensor:
     v, d = nbr.shape
+    if mask is not None:
+        if mode == "sum":
+            w = w * mask.to(w.dtype)
+        else:
+            w = torch.where(mask > 0, w, torch.full_like(w, float("inf")))
     idx = nbr.long()
     if mode == "sum":
         acc = torch.zeros((v, x.shape[1]), dtype=x.dtype, device=x.device)

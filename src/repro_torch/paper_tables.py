@@ -1,7 +1,7 @@
 """The paper's tables, one function per table or figure.
 
 Twin of ``benchmarks/paper_tables.py`` and of the table part of
-``benchmarks/run.py``, on one device. Every function returns
+``benchmarks/run.py``. Every function returns
 ``name,value,derived`` rows with the JAX package's names, rounding and
 ``derived`` strings:
 
@@ -18,9 +18,18 @@ Twin of ``benchmarks/paper_tables.py`` and of the table part of
 Replays and DiDiC run on ``device`` (``None`` means CUDA; GIS replays go
 through ``frontier_gather``). The three static tables and the Insert
 experiment replay the same (dataset, method, k) triples, so each replay is
-computed once and cached in the bench; no row changes. The JAX bench's
-``mesh=`` and ``maintenance=`` options have no twin here; the service takes
-them (:class:`~repro_torch.core.framework.PartitionedGraphService`).
+computed once and cached in the bench; no row changes.
+
+The Insert-growth, Stress and Dynamic tables take the JAX bench's ``mesh``
+(a :class:`~repro_torch.launch.mesh.ReplayMesh` over an open process
+group; every rank runs the same table) and, for Stress and Dynamic,
+``maintenance``: on a mesh the service replays sharded and resident and
+draws the sequential insert policies with the device scan, and its DiDiC
+is the mesh DiDiC (``"auto"``, ``"sharded"``; seeded from the map, so the
+initial diffusion state is not carried) or the single-device one
+(``"shared"``, whose rows equal the meshless rows). A mesh run's
+``cycle_s`` row says ``(resident device replay)``. The CLI runs meshless,
+as ``benchmarks/run.py`` does.
 
     PYTHONPATH=src python -m repro_torch.paper_tables --scale 1.0 --tables 7.1,corr
     PYTHONPATH=src python -m repro_torch.paper_tables --device cpu --scale 0.002 --didic-iters 10
@@ -237,19 +246,20 @@ class PaperBench:
                     )
         return rows
 
-    def insert_growth_experiment(self, k: int = 4, n_slices: int = 4,
+    def insert_growth_experiment(self, k: int = 4, mesh=None, n_slices: int = 4,
                                  amount: float = 0.05) -> List[Row]:
         """§7.4's Insert experiment with write-time vertex allocation: per
         insert policy and insert rate, ``n_slices`` slices of ``amount``
         dynamism in which ``rate`` of the units allocate a new vertex with
-        its edges, DiDiC maintaining every second slice. Rows record the
-        final T_G%, the served-traffic balance CV and the vertex growth."""
+        its edges, DiDiC maintaining every second slice (on a ``mesh``, the
+        mesh DiDiC). Rows record the final T_G%, the served-traffic balance
+        CV and the vertex growth."""
         rows = []
         for name in self.cfg.datasets:
             g = self.graph(name)
             for method in INSERT_METHODS:
                 for rate in GROWTH_RATES:
-                    runtime = self._runtime_for(name, k, method)
+                    runtime = self._runtime_for(name, k, method, mesh=mesh)
                     res = runtime.run(
                         self.ops(name), n_slices=n_slices, amount=amount,
                         maintain_every=2, insert_rate=rate,
@@ -269,24 +279,32 @@ class PaperBench:
                     rows.append(Row(f"{tag}/grown_vertices", grown))
         return rows
 
-    def _runtime_for(self, name: str, k: int, insert_method: str,
+    def _runtime_for(self, name: str, k: int, insert_method: str, mesh=None,
+                     maintenance: str = "auto",
                      carry_state: bool = True) -> DynamicExperimentRuntime:
-        """Service + runtime on the cached DiDiC partitioning. ``carry_state``
+        """Service + runtime on the cached DiDiC partitioning, on ``mesh``
+        when one is given (``maintenance`` picks its DiDiC). ``carry_state``
         seeds maintenance from the initial partitioning's diffusion state
-        (the Dynamic experiment's warm maintenance); the Stress experiment
-        measures the paper's cold one-iteration repair and passes ``False``."""
+        (the Dynamic experiment's warm maintenance) unless the mesh DiDiC
+        maintains, which seeds from the map; the Stress experiment measures
+        the paper's cold one-iteration repair and passes ``False``."""
         g = self.graph(name)
         parts = self.partition(name, "didic", k)  # also fills the state cache
-        svc = PartitionedGraphService(g, k, didic=self.cfg.didic(name, k), device=self.device)
-        if carry_state:
+        svc = PartitionedGraphService(g, k, didic=self.cfg.didic(name, k), device=self.device,
+                                      mesh=mesh, maintenance=maintenance)
+        if carry_state and (mesh is None or maintenance == "shared"):
             svc.runtime.state = self._parts.get((name, "didic_state", k))
         svc.partition_with(parts.copy())
         return DynamicExperimentRuntime(svc, insert_method=insert_method, seed=self.cfg.seed)
 
-    def stress_experiment(self, k: int = 4) -> List[Row]:
+    def stress_experiment(self, k: int = 4, mesh=None, maintenance: str = "auto") -> List[Row]:
+        """§7.5. On a ``mesh``, ``maintenance="shared"`` keeps the
+        single-device DiDiC (rows equal to the meshless ones) while replay
+        and dynamism run on the mesh; ``"auto"`` runs the mesh DiDiC."""
         rows = []
         for name in self.cfg.datasets:
-            runtime = self._runtime_for(name, k, "random", carry_state=False)
+            runtime = self._runtime_for(name, k, "random", mesh=mesh, maintenance=maintenance,
+                                        carry_state=False)
             res = runtime.run(self.ops(name), n_slices=1, amount=0.25,
                               maintain_every=1, measure_damaged=True)
             rec = res.records[0]
@@ -298,10 +316,13 @@ class PaperBench:
             ]
         return rows
 
-    def dynamic_experiment(self, k: int = 4, insert_method: str = "random") -> List[Row]:
+    def dynamic_experiment(self, k: int = 4, mesh=None, insert_method: str = "random",
+                           maintenance: str = "auto") -> List[Row]:
+        """§7.6; ``mesh`` and ``maintenance`` as in :meth:`stress_experiment`."""
         rows = []
         for name in self.cfg.datasets:
-            runtime = self._runtime_for(name, k, insert_method)
+            runtime = self._runtime_for(name, k, insert_method, mesh=mesh,
+                                        maintenance=maintenance)
             t0 = time.perf_counter()
             res = runtime.run(self.ops(name), n_slices=DYNAMIC_SLICES, amount=0.05,
                               maintain_every=1)
@@ -317,7 +338,8 @@ class PaperBench:
                     rec.migrated,
                 ))
             rows.append(Row(f"dynamic/{name}/cycle_s", round(cycle_s, 2),
-                            "5 slices incl. baseline replay"))
+                            "5 slices incl. baseline replay"
+                            + (" (resident device replay)" if mesh is not None else "")))
         return rows
 
     def maintenance_cost(self, k: int = 4) -> List[Row]:
