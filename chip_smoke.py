@@ -18,10 +18,13 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    on the same bfloat16 inputs, and two ``bell_matmul`` launches on
    DiDiC's matrix must give the same bits; ``flash_attention`` also at the
    other LM configs' prefill groups (Hq/Hkv 56/8, 32/4, 16/16; T 4,096, Dh
-   128, bf16) against its plain version and beside SDPA; and its backward
-   (``autograd.Function``: the kernel forward, the plain backward) at
-   granite's prefill shape against autograd through the plain version,
-   forward plus backward timed beside SDPA's;
+   128, bf16) against its plain version and beside SDPA; and its backward,
+   the hand-written ``flash_attention_bwd``, against the plain o/lse
+   backward at the JAX tests' shapes (float32 within 1e-5, bfloat16 3e-2),
+   at those groups and at granite's prefill shape, two calls bit-equal, the
+   ``autograd.Function`` at granite's shape against autograd through the
+   plain version, forward plus backward and the backward alone timed beside
+   SDPA's;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -204,13 +207,14 @@ phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
 the granite forward call of phase 5, the four forward calls of phase 9
 and phase 10's trainer runs on the card
-(``flash_attention``), every replay
+(``flash_attention``; the trainer runs' backwards ``flash_attention_bwd``), every replay
 and maintenance run of phase 6 (``frontier_gather``, ``bell_matmul``),
 phase 7's replays and tables, phase 8's uninterrupted, recovered and
 online runs, phase 12's sharded GIS replays, phase 13's online runs and
 phase 14's replays and runs and phase 18's tables (``frontier_gather``),
 and phase 13's mesh forward, phase 15's EP training steps and phase 17's
-TP training step and model ranks' attention (``flash_attention``);
+TP training step and model ranks' attention (``flash_attention``; the
+training steps' backwards ``flash_attention_bwd``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
 Phase 11's path reaches no kernel (its sums are ``index_add_``), nor does
@@ -250,7 +254,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 on the tensor cores
 N_OPS = 10_000               # the paper's evaluation-log length (§6.1)
 DIDIC_ITERATIONS = 100       # the paper's initial partitioning (§7.3)
 B2B = 10                     # calls a back-to-back time runs (each kernel's ms is one call)
-KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention")
+KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention", "flash_attention_bwd")
 
 
 class CheckFailed(RuntimeError):
@@ -1469,36 +1473,90 @@ def phase1_flash_groups(dev):
     say(json.dumps({"phase": 1, "flash_attention_groups": out}))
 
 
+def _bwd_inputs(dev, gen, dtype, b, hq, hkv, tq, tk, dh):
+    """q, k, v and dout for a backward check, drawn on the card."""
+    return [torch.randn((b * h, t, dh), generator=gen, device=dev).to(dtype)
+            for h, t in ((hq, tq), (hkv, tk), (hkv, tk), (hq, tq))]
+
+
+def _bwd_against_plain(q, k, v, dout, causal, q_offset, tol, what):
+    """``flash_attention_bwd`` (one counted launch on its route) against the
+    plain o/lse backward on the same inputs (the kernel forward's output and
+    log-sum-exp), dq, dk and dv within ``tol``; a second call gives the same
+    bits. Returns the largest gap."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_lse_ref
+
+    route, _ = flash_ops.plan_bwd(q.dtype, q.shape[-1])
+    out, lse = flash_ops._kernel_call(q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
+    n = BWD_KERNEL.route_launches.get(route, 0)
+    got = flash_ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=q_offset)
+    check(BWD_KERNEL.route_launches.get(route, 0) == n + 1, f"{what}: one flash_attention_bwd launch on {route}")
+    want = attention_bwd_lse_ref(q, k, v, out, lse, dout, causal=causal, q_offset=q_offset)
+    errs = []
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        err = float((g.float() - w.float()).abs().max())
+        check(g.dtype == x.dtype and g.shape == x.shape and bool(torch.isfinite(g).all())
+              and torch.allclose(g.float(), w.float(), rtol=tol, atol=tol),
+              f"{what}: {name} within {tol:g} of the plain o/lse backward (max abs {err:.3g})")
+        errs.append(err)
+    again = flash_ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=q_offset)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two backward calls give the same bits")
+    return max(errs)
+
+
 def phase1_flash_backward(dev, records):
-    """``flash_attention``'s backward at granite-3-8b's prefill shape (B 1,
-    T 4,096, Hq 32, Hkv 8, Dh 128, causal, bf16): the ``autograd.Function``
-    (the kernel forward, the plain backward) against autograd through the
-    plain version, dq, dk and dv within 3e-2 (the bf16 bar), and forward plus
-    backward timed beside SDPA's forward plus backward (its library time)."""
-    from repro_torch.kernels.flash_attention import KERNEL, attention_ref, flash_attention
+    """``flash_attention``'s backward, the hand-written ``flash_attention_bwd``:
+    against the plain o/lse backward at the JAX tests' shapes in float32
+    (within 1e-5, the ``ffma`` route) and bfloat16 (3e-2, ``mma``), at the
+    other LM configs' prefill groups and at granite-3-8b's prefill shape (B
+    1, T 4,096, Hq 32, Hkv 8, Dh 128, causal, bf16; 3e-2), two calls bit-equal
+    each time; at granite's shape also the ``autograd.Function`` against
+    autograd through the plain version, and the times: forward plus backward
+    (single and back to back), the backward alone, the plain backward and
+    SDPA's backward alone (``autograd.grad`` on a retained graph, its library
+    time), beside the bound."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, KERNEL, attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import TEST_SHAPES, attention_bwd_lse_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        for b, hq, hkv, tq, tk, dh, causal, qoff in TEST_SHAPES:
+            _bwd_against_plain(*_bwd_inputs(dev, gen, dtype, b, hq, hkv, tq, tk, dh), causal, qoff, tol,
+                               f"flash_attention_bwd {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} Tq={tq} Tk={tk} "
+                               f"Dh={dh} causal={causal} q_offset={qoff}")
+    for hq, hkv in FLASH_GROUPS:
+        _bwd_against_plain(*_bwd_inputs(dev, gen, torch.bfloat16, 1, hq, hkv, 4096, 4096, 128), True, 0, 3e-2,
+                           f"flash_attention_bwd bf16 [{hq}x4096x128], kv {hkv}")
 
     hq, hkv, t, dh = 32, 8, 4096, 128
     gen = torch.Generator(device=dev).manual_seed(4)
-    q, k, v, dout = (torch.randn((h, t, dh), generator=gen, device=dev).to(torch.bfloat16)
-                     for h in (hq, hkv, hkv, hq))
+    q, k, v, dout = _bwd_inputs(dev, gen, torch.bfloat16, 1, hq, hkv, t, t, dh)
+    err = _bwd_against_plain(q, k, v, dout, True, 0, 3e-2,
+                             f"flash_attention_bwd bf16 at granite's prefill shape [{hq}x{t}x{dh}], kv {hkv}")
     for x in (q, k, v):
         x.requires_grad_(True)
-    launches = KERNEL.launches
+    launches, bwd_launches = KERNEL.launches, BWD_KERNEL.launches
     out = flash_attention(q, k, v)
     check(KERNEL.launches == launches + 1, "flash_attention under autograd: one forward launch")
     got = torch.autograd.grad(out, (q, k, v), dout)
-    check(KERNEL.launches == launches + 1, "flash_attention's backward launched no kernel")
+    check(KERNEL.launches == launches + 1 and BWD_KERNEL.launches == bwd_launches + 1
+          and BWD_KERNEL.route_launches.get("mma", 0) > 0,
+          "flash_attention's backward: one flash_attention_bwd launch on mma, no forward launch")
     want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), dout)
     errs = []
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = float((g.float() - w.float()).abs().max())
+        e = float((g.float() - w.float()).abs().max())
         check(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
               and torch.allclose(g.float(), w.float(), rtol=3e-2, atol=3e-2),
-              f"flash_attention backward at granite's prefill shape: {name} within 3e-2 of the plain "
-              f"version's autograd (max abs {err:.3g})")
-        errs.append(err)
+              f"flash_attention forward + backward at granite's prefill shape: {name} within 3e-2 of the plain "
+              f"version's autograd (max abs {e:.3g})")
+        errs.append(e)
     del out, got, want
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, d4 = q[None], k[None], v[None], dout[None]
 
     def port():
         return torch.autograd.grad(flash_attention(q, k, v), (q, k, v), dout)
@@ -1507,28 +1565,61 @@ def phase1_flash_backward(dev, records):
         return torch.autograd.grad(attention_ref(q, k, v), (q, k, v), dout)
 
     def library():
-        return torch.autograd.grad(sdpa(q[None], k[None], v[None], is_causal=True, enable_gqa=True),
-                                   (q, k, v), dout[None])
+        return torch.autograd.grad(sdpa(q4, k4, v4, is_causal=True, enable_gqa=True), (q, k, v), d4)
 
     ms = time_cuda(port, reps=5)[0]
     b2b_ms = time_cuda(port, reps=3, inner=B2B)[0]
     plain_ms = time_cuda(plain, reps=3)[0]
     library_ms = time_cuda(library)[0]
     library_b2b_ms = time_cuda(library, inner=B2B)[0]
+
+    # The backward alone: the kernel's wrapper on the saved output and
+    # log-sum-exp; autograd's backward on a retained graph, the port's and SDPA's.
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    o, lse = flash_ops._kernel_call(qd, kd, vd, causal=True, q_offset=0, with_lse=True)
+    bwd_ms = time_cuda(lambda: flash_ops._bwd_kernel_call(qd, kd, vd, o, lse, dout, causal=True, q_offset=0))[0]
+    bwd_b2b_ms = time_cuda(lambda: flash_ops._bwd_kernel_call(qd, kd, vd, o, lse, dout, causal=True, q_offset=0),
+                           inner=B2B)[0]
+    bwd_plain_ms = time_cuda(lambda: attention_bwd_lse_ref(qd, kd, vd, o, lse, dout), reps=3)[0]
+    out = flash_attention(q, k, v)
+    port_bwd_ms = time_cuda(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))[0]
+    lib_out = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+    library_bwd_ms = time_cuda(lambda: torch.autograd.grad(lib_out, (q, k, v), d4, retain_graph=True))[0]
+    library_bwd_b2b_ms = time_cuda(lambda: torch.autograd.grad(lib_out, (q, k, v), d4, retain_graph=True),
+                                   inner=B2B)[0]
+    del out, lib_out, o, lse
     pairs = t * (t + 1) // 2
     n_flops = 12.0 * hq * pairs * dh              # q.k and p.v forward; dv, dp, dq, dk backward
     n_bytes = (2 * hq + 2 * hkv) * t * dh * 2 * 2  # q, k, v, dO read; dq, dk, dv, o written, bf16
     b_ms, b_by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
-    say(f"phase 1: flash_attention forward + backward, bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernel forward and "
-        f"plain backward {ms:.4f} ms ({b2b_ms:.4f} ms a call over {B2B} back to back), plain forward and backward "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention forward and backward {library_ms:.4f} ms "
-        f"({library_b2b_ms:.4f} b2b), bound {b_ms:.4f} ms ({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s); "
-        f"{ms / library_ms:.1f}x SDPA")
+    bwd_flops = 8.0 * hq * pairs * dh             # the four products of the gradient
+    bwd_done = 14.0 * hq * pairs * dh             # what the two passes compute (S and dP twice)
+    # q, o, dO, k, v and lse read once; dq, dk, dv written once
+    bwd_bytes = (3 * hq + 2 * hkv) * t * dh * 2 + hq * t * 4 + (hq + 2 * hkv) * t * dh * 2
+    bb_ms, bb_by = bound_ms(bwd_bytes, bwd_flops, PEAK_BF16_FLOPS)
+    say(f"phase 1: flash_attention forward + backward, bf16 causal [{hq}x{t}x{dh}], kv {hkv}: kernels {ms:.4f} ms "
+        f"({b2b_ms:.4f} ms a call over {B2B} back to back), plain forward and backward {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention forward and backward {library_ms:.4f} ms ({library_b2b_ms:.4f} b2b), "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s); {b2b_ms / library_b2b_ms:.2f}x "
+        f"SDPA b2b")
+    say(f"phase 1: flash_attention_bwd (mma) alone at granite's shape: kernel {bwd_ms:.4f} ms ({bwd_b2b_ms:.4f} "
+        f"b2b; {bwd_done / bwd_b2b_ms / 1e9:.1f} TFLOP/s done, {bwd_flops / bwd_b2b_ms / 1e9:.1f} needed), "
+        f"autograd backward on a retained graph {port_bwd_ms:.4f} ms, plain o/lse backward {bwd_plain_ms:.4f} ms, "
+        f"SDPA's backward {library_bwd_ms:.4f} ms ({library_bwd_b2b_ms:.4f} b2b), bound {bb_ms:.4f} ms ({bb_by}: "
+        f"{bwd_flops / 1e9:.1f} GFLOP at 989 TFLOP/s), {100 * bb_ms / bwd_ms:.1f} % of the bound")
     records["flash_attention"].update({
-        "backward": "plain, under autograd.Function", "fwd_bwd_ms": ms, "fwd_bwd_b2b_ms": b2b_ms,
+        "backward": "flash_attention_bwd", "fwd_bwd_ms": ms, "fwd_bwd_b2b_ms": b2b_ms,
         "fwd_bwd_plain_ms": plain_ms, "fwd_bwd_library_ms": library_ms,
         "fwd_bwd_library_b2b_ms": library_b2b_ms, "fwd_bwd_bound_ms": b_ms, "fwd_bwd_max_abs_err": max(errs),
     })
+    records["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "jax.grad of src/repro/kernels/flash_attention/ref.py:14 (attention_ref; no Pallas backward)",
+        "max_abs_err": err, "ms": bwd_ms, "b2b_ms": bwd_b2b_ms, "autograd_ms": port_bwd_ms,
+        "plain_ms": bwd_plain_ms, "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": library_bwd_ms,
+        "library_b2b_ms": library_bwd_b2b_ms,
+    }
 
 
 def _embedding_bag_checks(dev, params, batch, records):
@@ -2090,9 +2181,13 @@ def phase10_granite(dev, main_launches):
           f"phase 10: {TRAIN_STEPS} steps, every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
     check(losses[-1] < losses[0], f"phase 10: the loss at step {TRAIN_STEPS} ({losses[-1]:.4f}) is below step 1's "
                                   f"({losses[0]:.4f})")
+    bwd_routes = dict(kernels.KERNELS["flash_attention_bwd"].route_launches)
     check(counts["flash_attention"] == depth * n_steps and routes == {"wgmma": depth * n_steps},
           f"phase 10: flash_attention launched {counts['flash_attention']} times in {n_steps} steps, one a layer, "
-          f"all on the tensor-core route ({routes}), none in the backward")
+          f"all on the tensor-core route ({routes})")
+    check(counts["flash_attention_bwd"] == depth * n_steps and bwd_routes == {"mma": depth * n_steps},
+          f"phase 10: flash_attention_bwd launched {counts['flash_attention_bwd']} times in {n_steps} steps, one a "
+          f"layer in each backward, all on mma ({bwd_routes})")
     check(peak < TRAIN_PEAK_LIMIT, f"phase 10: training peak {peak / 1e9:.2f} GB at {depth} layers "
                                    f"(< {TRAIN_PEAK_LIMIT / 1e9:.0f} GB; predicted {predicted[depth] / 1e9:.2f})")
     check(peak < 80e9, f"phase 10: training peak {peak / 1e9:.2f} GB under the card's 80 GB")
@@ -2114,6 +2209,7 @@ def phase10_granite(dev, main_launches):
     grads = torch.autograd.grad(loss, list(adamw.leaves(live)))
     ev[2].record()
     bwd_flash = kernels.launch_counts()["flash_attention"] - fwd_flash
+    bwd_kernel = kernels.launch_counts()["flash_attention_bwd"]
     grad_tree = adamw.tree_unflatten(live, grads)
     del live, loss
     new_state = adamw.update(state["params"], grad_tree, state["opt"], opt_cfg)
@@ -2121,8 +2217,9 @@ def phase10_granite(dev, main_launches):
     ev[3].synchronize()
     fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
     del new_state
-    check(fwd_flash == depth and bwd_flash == 0,
-          f"phase 10: the split step's forward launched flash_attention {fwd_flash} times, its backward {bwd_flash}")
+    check(fwd_flash == depth and bwd_flash == 0 and bwd_kernel == depth,
+          f"phase 10: the split step's forward launched flash_attention {fwd_flash} times, its backward "
+          f"{bwd_flash} times and flash_attention_bwd {bwd_kernel} times")
     check(all(bool(torch.isfinite(g).all()) for g in grads), f"phase 10: all {len(grads)} gradient leaves finite")
     nonzero = {w: [bool(x) for x in (grad_tree["layers"]["attn"][w].float().abs().amax(dim=(1, 2)) > 0).tolist()]
                for w in ("wq", "wk", "wv")}
@@ -2143,6 +2240,7 @@ def phase10_granite(dev, main_launches):
         "peak_device_bytes": peak, "probe_peak_device_bytes": probe_peaks,
         "predicted_peak_device_bytes": predicted, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
         "update_ms": upd_ms, "flash_attention_launches": counts["flash_attention"],
+        "flash_attention_bwd_launches": counts["flash_attention_bwd"],
         "select_backward": select,
     }))
 
@@ -2197,9 +2295,13 @@ def phase10_launchers(dev, main_launches):
         steps_run = LAUNCH_STEPS + card.straggler.redispatches
         if ARCHS[arch][0] == "lm":
             routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+            bwd_routes = dict(kernels.KERNELS["flash_attention_bwd"].route_launches)
             check(counts["flash_attention"] == 4 * steps_run and routes == {"ffma": 4 * steps_run},
                   f"phase 10: launch.train {arch}: {counts['flash_attention']} flash_attention launches on the "
                   f"float32 route, 4 layers x {steps_run} steps")
+            check(counts["flash_attention_bwd"] == 4 * steps_run and bwd_routes == {"ffma": 4 * steps_run},
+                  f"phase 10: launch.train {arch}: {counts['flash_attention_bwd']} flash_attention_bwd launches on "
+                  f"the float32 route ({bwd_routes}), 4 layers x {steps_run} steps")
         out[arch] = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "losses": losses,
                      "cpu_losses": cpu_losses, "max_rel_gap": gap, "recoveries": card.recoveries,
                      "redispatches": card.straggler.redispatches, "launches": counts}
@@ -3365,6 +3467,7 @@ def _phase15_ep_step(cfg, depth, batch, mesh, dev, main_launches):
                                                       main_launches)
     peak = torch.cuda.max_memory_allocated()
     routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+    bwd_routes = dict(kernels.KERNELS["flash_attention_bwd"].route_launches)
     shapes = output_shapes((state[0], state[1], loss))
     t0 = time.perf_counter()
     ep_final = [t.cpu() for t in adamw.leaves(state[0])]
@@ -3386,7 +3489,10 @@ def _phase15_ep_step(cfg, depth, batch, mesh, dev, main_launches):
           f"phase 15: the loss falls, {losses[0]:.6f} -> {losses[-1]:.6f}")
     check(counts["flash_attention"] == n and routes == {"wgmma": n},
           f"phase 15: the EP steps launched flash_attention {counts['flash_attention']} times, one a layer "
-          f"a step, all on wgmma ({routes}), none in the backward")
+          f"a step, all on wgmma ({routes})")
+    check(counts["flash_attention_bwd"] == n and bwd_routes == {"mma": n},
+          f"phase 15: the EP steps launched flash_attention_bwd {counts['flash_attention_bwd']} times, one a layer "
+          f"a step, all on mma ({bwd_routes})")
     check(peak <= PHASE15_PEAK_LIMIT, f"phase 15: the EP run's peak {peak / 1e9:.2f} GB at {depth} layers "
                                       f"(<= {PHASE15_PEAK_LIMIT / 1e9:.0f} GB)")
     median_s = statistics.median(seconds)
@@ -3396,7 +3502,8 @@ def _phase15_ep_step(cfg, depth, batch, mesh, dev, main_launches):
     return {"depth": depth, "parameters": cut.param_count(), "losses": losses, "step_s": seconds,
             "dense_step_s": dense_seconds, "median_step_s": median_s, "tokens_per_s": PHASE15_TOKENS / median_s,
             "peak_device_bytes": peak, "flash_attention_launches": counts["flash_attention"],
-            "flash_attention_routes": routes, "host_copy_s": copy_s}, shapes
+            "flash_attention_routes": routes, "flash_attention_bwd_launches": counts["flash_attention_bwd"],
+            "host_copy_s": copy_s}, shapes
 
 
 def _phase15_ep_ranks(cfg, dev):
@@ -3689,6 +3796,7 @@ def _phase17_train(mesh, depth, batch, dev, main_launches):
     ((new_tp, _, loss), step_s), counts = _counted(lambda: once(lambda: step(params, state, batch)), main_launches)
     peak = torch.cuda.max_memory_allocated()
     routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+    bwd_routes = dict(kernels.KERNELS["flash_attention_bwd"].route_launches)
     new_d, _, loss0 = base.lm_train_step(cfg, None, opt)(params, state, batch)
     equal = torch.equal(loss, loss0) and all(torch.equal(a, b) for a, b in zip(adamw.leaves(new_tp),
                                                                                  adamw.leaves(new_d)))
@@ -3701,10 +3809,14 @@ def _phase17_train(mesh, depth, batch, dev, main_launches):
     check(counts["flash_attention"] == 2 * depth and routes == {"wgmma": 2 * depth},
           f"phase 17 (a): the step launched flash_attention {counts['flash_attention']} times, one a layer in the "
           f"forward and one in remat's recompute, all on wgmma ({routes})")
+    check(counts["flash_attention_bwd"] == depth and bwd_routes == {"mma": depth},
+          f"phase 17 (a): the step launched flash_attention_bwd {counts['flash_attention_bwd']} times, one a layer "
+          f"in the backward, all on mma ({bwd_routes})")
     say(f"phase 17 (a): {cfg.name} {depth} layers, one {PHASE17_TOKENS}-token sequence: TP step {step_s:.4f} s "
         f"(the first, no warm-up), peak {peak:,} B; parameters drawn in {init_s:.2f} s")
     return {"layers": depth, "loss": float(loss), "step_s": step_s, "peak_device_bytes": peak,
-            "flash_attention_launches": counts["flash_attention"], "flash_attention_routes": routes}
+            "flash_attention_launches": counts["flash_attention"], "flash_attention_routes": routes,
+            "flash_attention_bwd_launches": counts["flash_attention_bwd"]}
 
 
 def _rank_params(params, view):

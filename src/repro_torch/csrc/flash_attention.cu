@@ -19,6 +19,13 @@
 // the TPU kernel does. `scale` is Dh^-1/2 of the caller's head dim (the
 // wrapper may pad the head dim with zero columns, which add 0 to q.k).
 //
+// With a non-null `lse` ([B*Hq, Tq] float32) both kernels also store each
+// query row's log-sum-exp of its masked scores, in natural-log units:
+// lse = m + log(l), m the row max of s and l = sum_j exp(s[i, j] - m) (the
+// wgmma kernel keeps m in log2 units and stores (m + log2 l) ln 2). The
+// backward (csrc/flash_attention_bwd.cu) recomputes P = exp(s - lse) from
+// it. The serving path passes null and stores nothing more.
+//
 // What bounds it: operations. A causal call does about 2*B*Hq*Tq*Tk*Dh
 // float operations on ~4*B*Hkv*Tk*Dh bytes; at granite-3-8b's prefill shape
 // (Hq 32, Hkv 8, T 4096, Dh 128) that is ~2,000 operations a byte, above
@@ -124,7 +131,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        int64_t BHq, int64_t Tq, int64_t Tk, int Dh, int group,
                        int causal, int64_t q_offset, float scale, int n_q_tiles) {
   constexpr int S = DH + 4;
@@ -261,6 +268,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t row = q0 + ty * 4 + r;
     if (row >= Tq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[bh * Tq + row] = m[r] + logf(denom);
     T* orow = o + (bh * Tq + row) * Dh;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -273,7 +281,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int ffma_launch(const void* q, const void* k, const void* v, void* o, long long BHq, long long BHkv,
+int ffma_launch(const void* q, const void* k, const void* v, void* o, float* lse, long long BHq, long long BHkv,
            long long Tq, long long Tk, int Dh, int causal, long long q_offset, float scale,
            cudaStream_t stream) {
   constexpr int S = DH + 4;
@@ -285,19 +293,19 @@ int ffma_launch(const void* q, const void* k, const void* v, void* o, long long 
   const long long blocks = n_q_tiles * BHq;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, BHq, Tq, Tk, Dh, (int)(BHq / BHkv),
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, BHq, Tq, Tk, Dh, (int)(BHq / BHkv),
       causal, q_offset, scale, (int)n_q_tiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int ffma_launch_dh(const void* q, const void* k, const void* v, void* o, long long BHq, long long BHkv,
+int ffma_launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, long long BHq, long long BHkv,
               long long Tq, long long Tk, long long Dh, int causal, long long q_offset,
               float scale, cudaStream_t s) {
   const int dh = (int)Dh;
-  if (Dh <= 32) return ffma_launch<T, 32>(q, k, v, o, BHq, BHkv, Tq, Tk, dh, causal, q_offset, scale, s);
-  if (Dh <= 64) return ffma_launch<T, 64>(q, k, v, o, BHq, BHkv, Tq, Tk, dh, causal, q_offset, scale, s);
-  if (Dh <= 128) return ffma_launch<T, 128>(q, k, v, o, BHq, BHkv, Tq, Tk, dh, causal, q_offset, scale, s);
+  if (Dh <= 32) return ffma_launch<T, 32>(q, k, v, o, lse, BHq, BHkv, Tq, Tk, dh, causal, q_offset, scale, s);
+  if (Dh <= 64) return ffma_launch<T, 64>(q, k, v, o, lse, BHq, BHkv, Tq, Tk, dh, causal, q_offset, scale, s);
+  if (Dh <= 128) return ffma_launch<T, 128>(q, k, v, o, lse, BHq, BHkv, Tq, Tk, dh, causal, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -312,6 +320,7 @@ constexpr int kBoxBytes = 128 * 64 * 2;     // one [128 rows x 64 bf16] box
 constexpr int kStages = 2;
 constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -569,7 +578,7 @@ template <int DH>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q, const __grid_constant__ CUtensorMap tmap_k,
                    const __grid_constant__ CUtensorMap tmap_v, __nv_bfloat16* __restrict__ o,
-                   int BHq, int Tq, int Tk, int group, int causal, int q_offset, float scale_log2,
+                   float* __restrict__ lse, int BHq, int Tq, int Tk, int group, int causal, int q_offset, float scale_log2,
                    int n_q_tiles) {
   constexpr int NB = DH / 64;  // boxes a row
   extern __shared__ uint8_t wgmma_smem[];
@@ -733,6 +742,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q, const __grid_cons
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
     const int row0 = q0 + r0, row1 = row0 + 8;
+    if (lse != nullptr && (lane & 3) == 0) {  // m is in log2 units: lse = (m + log2 l) ln 2
+      if (row0 < Tq) lse[(size_t)bh * Tq + row0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * kLn2;
+      if (row1 < Tq) lse[(size_t)bh * Tq + row1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * kLn2;
+    }
     __nv_bfloat16* ob = o + (size_t)bh * Tq * DH;
 #pragma unroll
     for (int i = 0; i < DH / 8; ++i) {
@@ -785,7 +798,7 @@ bool make_tensor_map(CUtensorMap* map, const void* ptr, int dh, long long rows, 
 }
 
 template <int DH>
-int wgmma_launch(const void* q, const void* k, const void* v, void* o, long long BHq, long long BHkv,
+int wgmma_launch(const void* q, const void* k, const void* v, void* o, float* lse, long long BHq, long long BHkv,
                  long long Tq, long long Tk, int causal, long long q_offset, float scale,
                  cudaStream_t stream) {
   constexpr int smem = 1024 + (1 + 2 * kStages) * (DH / 64) * kBoxBytes + 8 * (1 + 4 * kStages);
@@ -811,7 +824,7 @@ int wgmma_launch(const void* q, const void* k, const void* v, void* o, long long
   if (blocks > 0x7fffffffLL || Tq + q_offset + kWBQ > 0x7fffffffLL || Tk > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kWThreads, smem, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, (int)BHq, (int)Tq, (int)Tk, (int)(BHq / BHkv), causal,
+      mq, mk, mv, (__nv_bfloat16*)o, lse, (int)BHq, (int)Tq, (int)Tk, (int)(BHq / BHkv), causal,
       (int)q_offset, scale * kLog2e, (int)n_q_tiles);
   return (int)cudaGetLastError();
 }
@@ -822,24 +835,26 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. route: 0 = ffma (either dtype, Dh 1..128),
 // 1 = wgmma (bfloat16, Dh 64 or 128, 16-byte aligned arrays). `scale`
-// multiplies q.k. Returns the CUDA error of the launch.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+// multiplies q.k. `lse`: null, or [BHq, Tq] float32 for the rows'
+// log-sum-exp (natural log). Returns the CUDA error of the launch.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                            long long BHq, long long BHkv, long long Tq, long long Tk,
                            long long Dh, int causal, long long q_offset, float scale,
                            int dtype, int route, void* stream) {
   if (BHq == 0 || Tq == 0) return (int)cudaGetLastError();
   if (BHkv <= 0 || BHq % BHkv != 0 || Tk <= 0 || q_offset < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* L = (float*)lse;
   if (route == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (Dh == 64) return wgmma_launch<64>(q, k, v, o, BHq, BHkv, Tq, Tk, causal, q_offset, scale, s);
-    if (Dh == 128) return wgmma_launch<128>(q, k, v, o, BHq, BHkv, Tq, Tk, causal, q_offset, scale, s);
+    if (Dh == 64) return wgmma_launch<64>(q, k, v, o, L, BHq, BHkv, Tq, Tk, causal, q_offset, scale, s);
+    if (Dh == 128) return wgmma_launch<128>(q, k, v, o, L, BHq, BHkv, Tq, Tk, causal, q_offset, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return ffma_launch_dh<float>(q, k, v, o, BHq, BHkv, Tq, Tk, Dh, causal, q_offset, scale, s);
+  if (dtype == 0) return ffma_launch_dh<float>(q, k, v, o, L, BHq, BHkv, Tq, Tk, Dh, causal, q_offset, scale, s);
   if (dtype == 1)
-    return ffma_launch_dh<__nv_bfloat16>(q, k, v, o, BHq, BHkv, Tq, Tk, Dh, causal, q_offset, scale, s);
+    return ffma_launch_dh<__nv_bfloat16>(q, k, v, o, L, BHq, BHkv, Tq, Tk, Dh, causal, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

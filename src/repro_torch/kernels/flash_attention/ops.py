@@ -18,13 +18,20 @@ that no main path takes (granite's heads are 128 wide): zero columns add
 exactly 0 to q·k, and the scale stays ``Dh**-0.5`` of the true head dim.
 Each launch counts once on :data:`KERNEL` and once under its route.
 
-On the card the kernel's output is differentiable: :func:`flash_attention`
-runs it inside a ``torch.autograd.Function`` (:class:`_FlashAttention`)
-whose forward is one counted launch and whose backward is the plain
-:func:`.ref.attention_bwd_ref`, as the JAX package differentiates its oracle
-(no Pallas kernel of it has a backward). So :data:`KERNEL` counts forward
-launches only; a backward launches nothing. On the CPU and on ``meta`` the
-plain forward is differentiated by autograd itself.
+On the card the kernel's output is differentiable: when autograd records
+(grad enabled and an input requiring grad), :func:`flash_attention` runs it
+inside a ``torch.autograd.Function`` (:class:`_FlashAttention`) whose
+forward is one counted launch that also stores each query row's
+log-sum-exp, and whose backward is one counted launch of the hand-written
+backward in ``csrc/flash_attention_bwd.cu`` (:data:`BWD_KERNEL`;
+FlashAttention-2's two passes, dK/dV then dQ, deterministic): route
+``"mma"`` (bfloat16, tensor cores, head dims padded as the forward's) or
+``"ffma"`` (float32). The JAX package has no Pallas backward (it
+differentiates its oracle); the kernel computes that gradient. It raises if
+it fails to build or launch: no plain fallback on the card. A call without
+autograd recording (serving) launches the forward alone and stores no
+log-sum-exp. On the CPU and on ``meta`` the plain forward is differentiated
+by autograd itself.
 
 The JAX package's ``use_kernel`` and ``flat_layout`` switches and its TPU
 tile sizes ``block_q``/``block_k`` have no twin: the device decides, and
@@ -41,17 +48,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import CudaKernel, check_cuda_tensor
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu",
-    [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _I64, ctypes.c_float, _INT, _INT, _P],
+    [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _I64, ctypes.c_float, _INT, _INT, _P],
+)
+BWD_KERNEL = CudaKernel(
+    "flash_attention_bwd", "flash_attention_bwd.cu",
+    [_P] * 10 + [_I64, _I64, _I64, _I64, _I64, _INT, _I64, ctypes.c_float, _INT, _INT, _P],
 )
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"ffma": 0, "wgmma": 1}
+_BWD_ROUTES = {"ffma": 0, "mma": 1}
 MAX_HEAD_DIM = 128
 BOX_COLS = 64  # bf16 columns of one 128-byte swizzle box of the wgmma kernel
 
@@ -61,6 +73,14 @@ def plan(dtype: torch.dtype, dh: int) -> Tuple[str, int]:
     if dtype == torch.bfloat16:
         return "wgmma", BOX_COLS * -(-dh // BOX_COLS)
     return "ffma", dh
+
+
+def plan_bwd(dtype: torch.dtype, dh: int) -> Tuple[str, int]:
+    """The backward's route for a CUDA call and the head dim it reads:
+    bfloat16 on the tensor cores (``"mma"``) at the forward's padded head
+    dim, float32 on the float32 pipe (``"ffma"``) at its own."""
+    route, dh_k = plan(dtype, dh)
+    return ("mma" if route == "wgmma" else "ffma"), dh_k
 
 
 def flash_attention(
@@ -76,23 +96,29 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu, meta or cuda tensors, got {q.device}")
-    return _FlashAttention.apply(q, k, v, causal, q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset)[0]
+    return _kernel_call(q, k, v, causal=causal, q_offset=q_offset)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The CUDA branch under autograd: forward is the kernel (one counted
-    launch), backward the plain :func:`attention_bwd_ref` (no launch)."""
+    """The CUDA branch under autograd: forward is the kernel with its
+    log-sum-exp (one counted launch of :data:`KERNEL`), backward the
+    hand-written backward (one counted launch of :data:`BWD_KERNEL`). The
+    log-sum-exp is a second, non-differentiable output."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _kernel_call(q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.q_offset = causal, q_offset
-        return _kernel_call(q, k, v, causal=causal, q_offset=q_offset)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_bwd_ref(q, k, v, dout, causal=ctx.causal, q_offset=ctx.q_offset)
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd_kernel_call(q, k, v, out, lse, dout, causal=ctx.causal, q_offset=ctx.q_offset)
         return dq, dk, dv, None, None
 
 
@@ -113,9 +139,11 @@ def _check(q, k, v, q_offset) -> None:
         raise ValueError(f"need Tk >= 1 and q_offset >= 0, got {tk} and {q_offset}")
 
 
-def _kernel_call(q, k, v, *, causal: bool, q_offset: int) -> torch.Tensor:
+def _kernel_call(q, k, v, *, causal: bool, q_offset: int, with_lse: bool = False):
     """The CUDA branch of :func:`flash_attention`: route, head-dim padding,
-    one launch through :func:`_launch`, the output sliced back."""
+    one launch through :func:`_launch` (or, ``with_lse``, through
+    :func:`_launch_lse`, which also fills the rows' float32 log-sum-exp),
+    the output sliced back. Returns ``out``, or ``(out, lse)``."""
     _check(q, k, v, q_offset)
     bhq, tq, dh = q.shape
     route, dh_k = plan(q.dtype, dh)
@@ -124,21 +152,71 @@ def _kernel_call(q, k, v, *, causal: bool, q_offset: int) -> torch.Tensor:
     if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core kernel reads q, k and v by TMA: they must be 16-byte aligned")
     out = torch.empty((bhq, tq, dh_k), dtype=q.dtype, device=q.device)
-    _launch(route, q, k, v, out, causal=causal, q_offset=q_offset, scale=dh ** -0.5)
-    return out if dh_k == dh else out[..., :dh].contiguous()
+    if with_lse:
+        lse = torch.empty((bhq, tq), dtype=torch.float32, device=q.device)
+        _launch_lse(route, q, k, v, out, lse, causal=causal, q_offset=q_offset, scale=dh ** -0.5)
+    else:
+        _launch(route, q, k, v, out, causal=causal, q_offset=q_offset, scale=dh ** -0.5)
+    out = out if dh_k == dh else out[..., :dh].contiguous()
+    return (out, lse) if with_lse else out
 
 
-def _args(route, q, k, v, out, causal: bool, q_offset: int, scale: float) -> tuple:
-    """The C entry point's arguments for one launch on ``route``."""
+def _args(route, q, k, v, out, lse, causal: bool, q_offset: int, scale: float) -> tuple:
+    """The C entry point's arguments for one launch on ``route`` (``lse``
+    None: a null pointer, nothing stored)."""
     bhq, tq, dh = q.shape
     bhkv, tk, _ = k.shape
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bhq, bhkv, tq, tk, dh,
-            int(causal), q_offset, scale, _DTYPES[q.dtype], _ROUTES[route],
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            bhq, bhkv, tq, tk, dh, int(causal), q_offset, scale, _DTYPES[q.dtype], _ROUTES[route],
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def _launch(route, q, k, v, out, *, causal: bool, q_offset: int, scale: float) -> None:
-    KERNEL.launch(*_args(route, q, k, v, out, causal, q_offset, scale), route=route)
+    KERNEL.launch(*_args(route, q, k, v, out, None, causal, q_offset, scale), route=route)
+
+
+def _launch_lse(route, q, k, v, out, lse, *, causal: bool, q_offset: int, scale: float) -> None:
+    KERNEL.launch(*_args(route, q, k, v, out, lse, causal, q_offset, scale), route=route)
+
+
+def _bwd_kernel_call(q, k, v, out, lse, dout, *, causal: bool, q_offset: int):
+    """The backward of the CUDA branch: route, head-dim padding (q, k, v,
+    out and dout zero-padded as the forward pads; the padded columns of
+    every gradient are sliced off), one launch through :func:`_launch_bwd`.
+    Returns ``(dq, dk, dv)`` in q's, k's and v's types."""
+    dout = dout.contiguous()
+    _check(q, k, v, q_offset)
+    for name, t in (("out", out), ("dout", dout)):
+        check_cuda_tensor(t, name, (q.dtype,), 3, q.device)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit q {tuple(q.shape)}")
+    check_cuda_tensor(lse, "lse", (torch.float32,), 2, q.device)
+    if tuple(lse.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"lse {tuple(lse.shape)} does not fit q {tuple(q.shape)}")
+    dh = q.shape[-1]
+    route, dh_k = plan_bwd(q.dtype, dh)
+    if dh_k != dh:
+        q, k, v, out, dout = (F.pad(t, (0, dh_k - dh)) for t in (q, k, v, out, dout))
+    if route == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("the tensor-core backward reads q, k, v, out and dout by cp.async: "
+                         "they must be 16-byte aligned")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch_bwd(route, q, k, v, out, lse, dout, dq, dk, dv, causal=causal, q_offset=q_offset, scale=dh ** -0.5)
+    if dh_k != dh:
+        dq, dk, dv = (t[..., :dh].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+def _launch_bwd(route, q, k, v, out, lse, dout, dq, dk, dv, *, causal: bool, q_offset: int, scale: float) -> None:
+    """One counted launch of the backward (its three kernels); Delta's
+    float32 scratch is allocated here."""
+    bhq, tq, dh = q.shape
+    bhkv, tk, _ = k.shape
+    delta = torch.empty((bhq, tq), dtype=torch.float32, device=q.device)
+    BWD_KERNEL.launch(
+        *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
+        bhq, bhkv, tq, tk, dh, int(causal), q_offset, scale, _DTYPES[q.dtype], _BWD_ROUTES[route],
+        torch.cuda.current_stream(q.device).cuda_stream, route=route)
 
 
 def _ffma_bf16_uncounted(
@@ -151,7 +229,7 @@ def _ffma_bf16_uncounted(
     if q.dtype != torch.bfloat16 or q.device.type != "cuda":
         raise TypeError("_ffma_bf16_uncounted takes bfloat16 CUDA tensors")
     out = torch.empty_like(q)
-    KERNEL.call(*_args("ffma", q, k, v, out, causal, q_offset, q.shape[-1] ** -0.5))
+    KERNEL.call(*_args("ffma", q, k, v, out, None, causal, q_offset, q.shape[-1] ** -0.5))
     return out
 
 

@@ -537,21 +537,49 @@ def _grad_inputs(dev, seed, dtype, b, hq, hkv, tq, tk, dh):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
 def test_cuda_flash_attention_backward_matches_plain_autograd(dtype, tol, b, hq, hkv, tq, tk, dh, causal, qoff):
-    """The ``autograd.Function`` on the card (the kernel forward, the plain
-    backward) against autograd through the plain version: one launch, none
-    in the backward; float32 within 1e-5 (the CPU tests' bar against
-    ``jax.grad``), bfloat16 within 3e-2."""
-    from repro_torch.kernels.flash_attention import KERNEL, attention_ref, flash_attention
+    """The ``autograd.Function`` on the card (the kernel forward, the kernel
+    backward) against autograd through the plain version: one forward
+    launch, one ``flash_attention_bwd`` launch on the dtype's route;
+    float32 within 1e-5 (the CPU tests' bar against ``jax.grad``), bfloat16
+    within 3e-2."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, KERNEL, attention_ref, flash_attention
 
     dev = _cuda_or_skip()
     q, k, v, dout = _grad_inputs(dev, 12, dtype, b, hq, hkv, tq, tk, dh)
-    before = KERNEL.launches
+    before, bwd_before = KERNEL.launches, BWD_KERNEL.launches
+    route = "ffma" if dtype == torch.float32 else "mma"
+    bwd_route = BWD_KERNEL.route_launches.get(route, 0)
     got = torch.autograd.grad(flash_attention(q, k, v, causal=causal, q_offset=qoff), (q, k, v), dout)
     assert KERNEL.launches == before + 1
+    assert BWD_KERNEL.launches == bwd_before + 1 and BWD_KERNEL.route_launches[route] == bwd_route + 1
     want = torch.autograd.grad(attention_ref(q, k, v, causal=causal, q_offset=qoff), (q, k, v), dout)
     for g, w in zip(got, want):
         assert g.dtype == dtype
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_cuda_flash_attention_bwd_matches_plain_lse_backward(dtype, tol, b, hq, hkv, tq, tk, dh, causal, qoff):
+    """``flash_attention_bwd`` against the plain o/lse backward on the same
+    saved output and log-sum-exp (the kernel forward's, itself within 1e-5
+    of the plain log-sum-exp in float32), and two calls bit-equal."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_lse_ref, attention_lse_ref
+
+    dev = _cuda_or_skip()
+    q, k, v, dout = (t.detach() for t in _grad_inputs(dev, 13, dtype, b, hq, hkv, tq, tk, dh))
+    out, lse = ops._kernel_call(q, k, v, causal=causal, q_offset=qoff, with_lse=True)
+    want_out, want_lse = attention_lse_ref(q, k, v, causal=causal, q_offset=qoff)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    got = ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
+    want = attention_bwd_lse_ref(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    again = ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -42,7 +42,7 @@ from repro_torch.kernels.embedding_bag.ref import TEST_SHAPES as EMBEDDING_BAG_S
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, mha
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+from repro_torch.kernels.flash_attention.ref import attention_bwd_lse_ref, attention_bwd_ref, attention_lse_ref
 from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather, spill_tail
 
 # The suite runs in several worker processes at once; one intra-op thread
@@ -227,7 +227,8 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(monkeypatch):
     flash_attention(q, q[:2], q[:2])
     mha(torch.rand(1, 8, 4, 16), torch.rand(1, 8, 2, 16), torch.rand(1, 8, 2, 16))
     assert kernels.launch_counts() == {
-        "frontier_gather": 0, "bell_matmul": 0, "embedding_bag": 0, "flash_attention": 0}
+        "frontier_gather": 0, "bell_matmul": 0, "embedding_bag": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0}
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -350,9 +351,12 @@ def test_flash_attention_head_dim_padding_matches_pallas(monkeypatch, dh):
 
 
 # ------------------------------------------------------------- backwards
-# The kernels' backwards are plain PyTorch (the JAX package differentiates
-# its oracles; no Pallas kernel has a backward). Bars: attention within
-# 1e-5 of jax.grad in float32 (sums over up to 128 keys in another order);
+# The JAX package differentiates its oracles (no Pallas kernel has a
+# backward). On the card attention's backward is the kernel
+# flash_attention_bwd, whose plain version is attention_bwd_lse_ref (from
+# the saved output and log-sum-exp); embedding_bag's backward is plain
+# PyTorch. Bars: attention within 1e-5 of jax.grad in float32 (sums over
+# up to 128 keys in another order);
 # the bag's table gradient within 1e-6, the forward's bar (each entry a sum
 # of at most L products); its weight gradient within 1e-6 of its largest
 # entry, because each entry is a D-term float32 dot product (D up to 130)
@@ -411,27 +415,116 @@ def test_embedding_bag_grad_through_plain_version():
 
 @pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
 def test_flash_attention_function_wiring(monkeypatch, b, hq, hkv, tq, tk, dh, causal, qoff):
-    """The CUDA branch's ``autograd.Function`` on CPU tensors, with the launch
-    replaced by the plain version: one launch forward, none backward, and
-    the gradients of the plain version's autograd (within 1e-5)."""
+    """The CUDA branch's ``autograd.Function`` on CPU tensors, with the
+    launches replaced by the plain versions: the forward fills out and lse
+    (one launch, with the log-sum-exp), the backward runs the plain o/lse
+    backward (one launch of the backward), and the gradients are the plain
+    version's autograd (within 1e-5)."""
     launches = []
 
-    def plain_launch(route, q, k, v, out, *, causal, q_offset, scale):
-        launches.append(route)
-        out.copy_(attention_ref(q, k, v, causal=causal, q_offset=q_offset, scale=scale))
+    def plain_launch_lse(route, q, k, v, out, lse, *, causal, q_offset, scale):
+        launches.append(("forward", route))
+        o, l = attention_lse_ref(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+        out.copy_(o)
+        lse.copy_(l)
 
-    monkeypatch.setattr(flash_ops, "_launch", plain_launch)
+    def plain_launch_bwd(route, q, k, v, out, lse, dout, dq, dk, dv, *, causal, q_offset, scale):
+        launches.append(("backward", route))
+        for dst, g in zip((dq, dk, dv), attention_bwd_lse_ref(q, k, v, out, lse, dout, causal=causal,
+                                                             q_offset=q_offset, scale=scale)):
+            dst.copy_(g)
+
+    monkeypatch.setattr(flash_ops, "_launch_lse", plain_launch_lse)
+    monkeypatch.setattr(flash_ops, "_launch_bwd", plain_launch_bwd)
     arrs = _attention_inputs(8, b, hq, hkv, tq, tk, dh)
     q, k, v = (torch.tensor(a, requires_grad=True) for a in arrs[:3])
-    out = flash_ops._FlashAttention.apply(q, k, v, causal, qoff)
-    assert launches == ["ffma"]
+    out, lse = flash_ops._FlashAttention.apply(q, k, v, causal, qoff)
+    assert launches == [("forward", "ffma")]
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b * hq, tq) and not lse.requires_grad
     got = torch.autograd.grad(out, (q, k, v), torch.as_tensor(arrs[3]))
-    assert launches == ["ffma"]
+    assert launches == [("forward", "ffma"), ("backward", "ffma")]
     qr, kr, vr = (torch.tensor(a, requires_grad=True) for a in arrs[:3])
     want = torch.autograd.grad(attention_ref(qr, kr, vr, causal=causal, q_offset=qoff), (qr, kr, vr),
                                torch.as_tensor(arrs[3]))
     for g, w in zip(got, want):
+        assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_attention_lse_ref_matches_jax_oracle(b, hq, hkv, tq, tk, dh, causal, qoff):
+    """The plain forward with its log-sum-exp: the output against the JAX
+    oracle, the log-sum-exp against ``logsumexp`` of the JAX oracle's scaled,
+    masked scores, both within 1e-5 in float32."""
+    q, k, v, _ = _attention_inputs(10, b, hq, hkv, tq, tk, dh)
+    out, lse = attention_lse_ref(*(torch.as_tensor(a) for a in (q, k, v)), causal=causal, q_offset=qoff)
+    want = jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, q_offset=qoff)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    s = jnp.einsum("bqd,bkd->bqk", jnp.asarray(q), jnp.repeat(jnp.asarray(k), hq // hkv, axis=0)) * dh ** -0.5
+    if causal:
+        s = jnp.where(jnp.arange(tk)[None, :] <= jnp.arange(tq)[:, None] + qoff, s, -jnp.inf)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b * hq, tq)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(s, axis=-1)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", FLASH_SHAPES)
+def test_attention_bwd_lse_ref_matches_jax_grad(b, hq, hkv, tq, tk, dh, causal, qoff):
+    """The plain backward from the saved output and log-sum-exp (what the
+    hand-written backward computes) against ``jax.grad`` of the JAX oracle,
+    within 1e-5 in float32."""
+    q, k, v, dout = _attention_inputs(11, b, hq, hkv, tq, tk, dh)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_attention_ref(q_, k_, v_, causal=causal, q_offset=qoff),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    qt, kt, vt = (torch.as_tensor(a) for a in (q, k, v))
+    o, lse = attention_lse_ref(qt, kt, vt, causal=causal, q_offset=qoff)
+    got = attention_bwd_lse_ref(qt, kt, vt, o, lse, torch.as_tensor(dout), causal=causal, q_offset=qoff)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype,dh,route,dh_kernel", [
+    (torch.bfloat16, 16, "mma", 64),
+    (torch.bfloat16, 32, "mma", 64),
+    (torch.bfloat16, 64, "mma", 64),
+    (torch.bfloat16, 128, "mma", 128),
+    (torch.float32, 48, "ffma", 48),
+    (torch.float32, 128, "ffma", 128),
+])
+def test_flash_attention_bwd_route_and_padding_plan(dtype, dh, route, dh_kernel):
+    # The backward takes the tensor cores for bfloat16 at the forward's
+    # padded head dim, the float32 pipe for float32 at its own.
+    assert flash_ops.plan_bwd(dtype, dh) == (route, dh_kernel)
+
+
+@pytest.mark.parametrize("dh", [48, 100])
+def test_flash_attention_bwd_head_dim_padding(monkeypatch, dh):
+    """The backward's CUDA branch on bfloat16 CPU tensors with the launch
+    replaced by the plain o/lse backward: one launch on ``"mma"`` at the
+    padded head dim with the true head dim's scale, gradients in bfloat16 of
+    the unpadded shapes, within 3e-2 of the float32 closed form."""
+    calls = []
+
+    def plain_launch_bwd(route, q, k, v, out, lse, dout, dq, dk, dv, *, causal, q_offset, scale):
+        calls.append((route, q.shape[-1], out.shape[-1], dout.shape[-1], scale))
+        for dst, g in zip((dq, dk, dv), attention_bwd_lse_ref(q, k, v, out, lse, dout, causal=causal,
+                                                             q_offset=q_offset, scale=scale)):
+            dst.copy_(g)
+
+    monkeypatch.setattr(flash_ops, "_launch_bwd", plain_launch_bwd)
+    rng = np.random.default_rng(12)
+    hq, hkv, tq, tk, qoff = 4, 2, 40, 72, 32
+    arrs = [rng.normal(size=(n, t, dh)) for n, t in ((hq, tq), (hkv, tk), (hkv, tk), (hq, tq))]
+    q, k, v, dout = (torch.as_tensor(a, dtype=torch.bfloat16) for a in arrs)
+    out, lse = attention_lse_ref(q, k, v, causal=True, q_offset=qoff)
+    got = flash_ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=True, q_offset=qoff)
+    dh_k = 64 if dh <= 64 else 128
+    assert calls == [("mma", dh_k, dh_k, dh_k, dh ** -0.5)]
+    want = attention_bwd_ref(*(torch.as_tensor(a.astype(np.float32)) for a in arrs), causal=True, q_offset=qoff)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape and g.is_contiguous()
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=3e-2, atol=3e-2)
 
 
 def test_embedding_bag_function_wiring(monkeypatch):
