@@ -1509,14 +1509,15 @@ def _bwd_against_plain(q, k, v, dout, causal, q_offset, tol, what):
 def phase1_flash_backward(dev, records):
     """``flash_attention``'s backward, the hand-written ``flash_attention_bwd``:
     against the plain o/lse backward at the JAX tests' shapes in float32
-    (within 1e-5, the ``ffma`` route) and bfloat16 (3e-2, ``mma``), at the
+    (within 1e-5, the ``ffma`` route) and bfloat16 (3e-2, ``wgmma``), at the
     other LM configs' prefill groups and at granite-3-8b's prefill shape (B
     1, T 4,096, Hq 32, Hkv 8, Dh 128, causal, bf16; 3e-2), two calls bit-equal
     each time; at granite's shape also the ``autograd.Function`` against
     autograd through the plain version, and the times: forward plus backward
     (single and back to back), the backward alone, the plain backward and
     SDPA's backward alone (``autograd.grad`` on a retained graph, its library
-    time), beside the bound."""
+    time), beside the bound, and the device time of each of the backward's
+    three CUDA kernels in one call (``torch.profiler``)."""
     from repro_torch.kernels.flash_attention import BWD_KERNEL, KERNEL, attention_ref, flash_attention
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import TEST_SHAPES, attention_bwd_lse_ref
@@ -1543,8 +1544,8 @@ def phase1_flash_backward(dev, records):
     check(KERNEL.launches == launches + 1, "flash_attention under autograd: one forward launch")
     got = torch.autograd.grad(out, (q, k, v), dout)
     check(KERNEL.launches == launches + 1 and BWD_KERNEL.launches == bwd_launches + 1
-          and BWD_KERNEL.route_launches.get("mma", 0) > 0,
-          "flash_attention's backward: one flash_attention_bwd launch on mma, no forward launch")
+          and BWD_KERNEL.route_launches.get("wgmma", 0) > 0,
+          "flash_attention's backward: one flash_attention_bwd launch on wgmma, no forward launch")
     want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), dout)
     errs = []
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -1581,6 +1582,8 @@ def phase1_flash_backward(dev, records):
     bwd_b2b_ms = time_cuda(lambda: flash_ops._bwd_kernel_call(qd, kd, vd, o, lse, dout, causal=True, q_offset=0),
                            inner=B2B)[0]
     bwd_plain_ms = time_cuda(lambda: attention_bwd_lse_ref(qd, kd, vd, o, lse, dout), reps=3)[0]
+    bwd_split = _bwd_kernel_split(lambda: flash_ops._bwd_kernel_call(qd, kd, vd, o, lse, dout, causal=True,
+                                                                      q_offset=0))
     out = flash_attention(q, k, v)
     port_bwd_ms = time_cuda(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))[0]
     lib_out = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
@@ -1593,7 +1596,7 @@ def phase1_flash_backward(dev, records):
     n_bytes = (2 * hq + 2 * hkv) * t * dh * 2 * 2  # q, k, v, dO read; dq, dk, dv, o written, bf16
     b_ms, b_by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
     bwd_flops = 8.0 * hq * pairs * dh             # the four products of the gradient
-    bwd_done = 14.0 * hq * pairs * dh             # what the two passes compute (S and dP twice)
+    bwd_done = 10.0 * hq * pairs * dh             # what the one sweep computes (S and dP once)
     # q, o, dO, k, v and lse read once; dq, dk, dv written once
     bwd_bytes = (3 * hq + 2 * hkv) * t * dh * 2 + hq * t * 4 + (hq + 2 * hkv) * t * dh * 2
     bb_ms, bb_by = bound_ms(bwd_bytes, bwd_flops, PEAK_BF16_FLOPS)
@@ -1602,11 +1605,13 @@ def phase1_flash_backward(dev, records):
         f"scaled_dot_product_attention forward and backward {library_ms:.4f} ms ({library_b2b_ms:.4f} b2b), "
         f"bound {b_ms:.4f} ms ({b_by}: {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s); {b2b_ms / library_b2b_ms:.2f}x "
         f"SDPA b2b")
-    say(f"phase 1: flash_attention_bwd (mma) alone at granite's shape: kernel {bwd_ms:.4f} ms ({bwd_b2b_ms:.4f} "
+    split = ", ".join(f"{name} {ms_:.4f} ms" for name, ms_ in bwd_split.items()) or "not measured"
+    say(f"phase 1: flash_attention_bwd (wgmma) alone at granite's shape: kernel {bwd_ms:.4f} ms ({bwd_b2b_ms:.4f} "
         f"b2b; {bwd_done / bwd_b2b_ms / 1e9:.1f} TFLOP/s done, {bwd_flops / bwd_b2b_ms / 1e9:.1f} needed), "
         f"autograd backward on a retained graph {port_bwd_ms:.4f} ms, plain o/lse backward {bwd_plain_ms:.4f} ms, "
         f"SDPA's backward {library_bwd_ms:.4f} ms ({library_bwd_b2b_ms:.4f} b2b), bound {bb_ms:.4f} ms ({bb_by}: "
-        f"{bwd_flops / 1e9:.1f} GFLOP at 989 TFLOP/s), {100 * bb_ms / bwd_ms:.1f} % of the bound")
+        f"{bwd_flops / 1e9:.1f} GFLOP at 989 TFLOP/s), {100 * bb_ms / bwd_ms:.1f} % of the bound; one call's "
+        f"device time by kernel (torch.profiler): {split}")
     records["flash_attention"].update({
         "backward": "flash_attention_bwd", "fwd_bwd_ms": ms, "fwd_bwd_b2b_ms": b2b_ms,
         "fwd_bwd_plain_ms": plain_ms, "fwd_bwd_library_ms": library_ms,
@@ -1618,8 +1623,30 @@ def phase1_flash_backward(dev, records):
         "replaces": "jax.grad of src/repro/kernels/flash_attention/ref.py:14 (attention_ref; no Pallas backward)",
         "max_abs_err": err, "ms": bwd_ms, "b2b_ms": bwd_b2b_ms, "autograd_ms": port_bwd_ms,
         "plain_ms": bwd_plain_ms, "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": library_bwd_ms,
-        "library_b2b_ms": library_bwd_b2b_ms,
+        "library_b2b_ms": library_bwd_b2b_ms, "kernel_split_ms": bwd_split,
     }
+
+
+def _bwd_kernel_split(call):
+    """Device milliseconds of each CUDA kernel that one ``call`` runs, by
+    ``torch.profiler`` (the backward's three: Delta, the sweep, dQ's
+    conversion; the wrapper's zero fills beside them). Empty when the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {"delta_kernel": "delta", "bwd_wgmma_kernel": "sweep", "dq_convert_kernel": "dq_convert"}
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = next((v for k, v in names.items() if k in e.key), "other")
+            split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3
+    return split
 
 
 def _embedding_bag_checks(dev, params, batch, records):
@@ -2185,9 +2212,9 @@ def phase10_granite(dev, main_launches):
     check(counts["flash_attention"] == depth * n_steps and routes == {"wgmma": depth * n_steps},
           f"phase 10: flash_attention launched {counts['flash_attention']} times in {n_steps} steps, one a layer, "
           f"all on the tensor-core route ({routes})")
-    check(counts["flash_attention_bwd"] == depth * n_steps and bwd_routes == {"mma": depth * n_steps},
+    check(counts["flash_attention_bwd"] == depth * n_steps and bwd_routes == {"wgmma": depth * n_steps},
           f"phase 10: flash_attention_bwd launched {counts['flash_attention_bwd']} times in {n_steps} steps, one a "
-          f"layer in each backward, all on mma ({bwd_routes})")
+          f"layer in each backward, all on wgmma ({bwd_routes})")
     check(peak < TRAIN_PEAK_LIMIT, f"phase 10: training peak {peak / 1e9:.2f} GB at {depth} layers "
                                    f"(< {TRAIN_PEAK_LIMIT / 1e9:.0f} GB; predicted {predicted[depth] / 1e9:.2f})")
     check(peak < 80e9, f"phase 10: training peak {peak / 1e9:.2f} GB under the card's 80 GB")
@@ -3490,9 +3517,9 @@ def _phase15_ep_step(cfg, depth, batch, mesh, dev, main_launches):
     check(counts["flash_attention"] == n and routes == {"wgmma": n},
           f"phase 15: the EP steps launched flash_attention {counts['flash_attention']} times, one a layer "
           f"a step, all on wgmma ({routes})")
-    check(counts["flash_attention_bwd"] == n and bwd_routes == {"mma": n},
+    check(counts["flash_attention_bwd"] == n and bwd_routes == {"wgmma": n},
           f"phase 15: the EP steps launched flash_attention_bwd {counts['flash_attention_bwd']} times, one a layer "
-          f"a step, all on mma ({bwd_routes})")
+          f"a step, all on wgmma ({bwd_routes})")
     check(peak <= PHASE15_PEAK_LIMIT, f"phase 15: the EP run's peak {peak / 1e9:.2f} GB at {depth} layers "
                                       f"(<= {PHASE15_PEAK_LIMIT / 1e9:.0f} GB)")
     median_s = statistics.median(seconds)
@@ -3809,9 +3836,9 @@ def _phase17_train(mesh, depth, batch, dev, main_launches):
     check(counts["flash_attention"] == 2 * depth and routes == {"wgmma": 2 * depth},
           f"phase 17 (a): the step launched flash_attention {counts['flash_attention']} times, one a layer in the "
           f"forward and one in remat's recompute, all on wgmma ({routes})")
-    check(counts["flash_attention_bwd"] == depth and bwd_routes == {"mma": depth},
+    check(counts["flash_attention_bwd"] == depth and bwd_routes == {"wgmma": depth},
           f"phase 17 (a): the step launched flash_attention_bwd {counts['flash_attention_bwd']} times, one a layer "
-          f"in the backward, all on mma ({bwd_routes})")
+          f"in the backward, all on wgmma ({bwd_routes})")
     say(f"phase 17 (a): {cfg.name} {depth} layers, one {PHASE17_TOKENS}-token sequence: TP step {step_s:.4f} s "
         f"(the first, no warm-up), peak {peak:,} B; parameters drawn in {init_s:.2f} s")
     return {"layers": depth, "loss": float(loss), "step_s": step_s, "peak_device_bytes": peak,

@@ -4,6 +4,7 @@ checkout, in turns, on one card.
     python3 kernel_ab.py --other DIR [--phase phase1_bell]
     python3 kernel_ab.py --other DIR --phase frontier_gather
     python3 kernel_ab.py --other DIR --phase embedding_bag
+    python3 kernel_ab.py --other DIR --phase flash_attention_bwd
 
 ``DIR`` is the root of another checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
@@ -11,19 +12,27 @@ Every turn (other, this, this, other) is a fresh process in one checkout:
 it builds that checkout's kernels into its own ``build/`` and times that
 checkout's kernel.
 
-* ``--phase frontier_gather`` and ``--phase embedding_bag`` are run by this
-  script's own code in each checkout, so they need nothing of the other
-  checkout but its public wrapper, called by its positional signature.
+* ``--phase frontier_gather``, ``--phase embedding_bag`` and ``--phase
+  flash_attention_bwd`` are run by this script's own code in each checkout,
+  so they need nothing of the other checkout but its wrapper, called by its
+  signature.
   ``frontier_gather``: the GIS whole-graph layout at ``scale=1.0``
   (786,432 rows, C = 128, min mode, values drawn from seed 1 as in
   ``chip_smoke.py``), called without a row schedule and, where the
   checkout's engine has one (``full_row_order``), with it.
   ``embedding_bag``: DIN's item table (``configs/din.FULL``, seed 0) and
   its 262,144 histories of 100 (``din_batch`` seed 0) with mean weights.
+  ``flash_attention_bwd``: granite-3-8b's prefill shape (Hq 32, Hkv 8, T
+  4,096, Dh 128, causal, bf16; inputs drawn from seed 4), the checkout's
+  ``ops._kernel_call(..., with_lse=True)`` and then ``ops._bwd_kernel_call``
+  on its output and log-sum-exp; SDPA's backward alone on the same inputs
+  (``autograd.grad`` on a retained graph) is timed beside it as
+  ``sdpa_backward``.
   Each call is held to the plain version (min mode bit-exact, the bag
-  within 1e-6) and timed as ``chip_smoke.py`` times kernels: one call
-  between two CUDA events (``ms``) and a call's share of 10 back to back
-  (``b2b_ms``), medians of 10.
+  within 1e-6, the backward within 3e-2 of ``attention_bwd_lse_ref``) and
+  timed as ``chip_smoke.py`` times kernels: one call between two CUDA
+  events (``ms``) and a call's share of 10 back to back (``b2b_ms``),
+  medians of 10.
 * Any other ``--phase`` is a ``chip_smoke.py`` phase function of that
   checkout that takes ``(device, records)`` (``phase1_bell``,
   ``phase1_flash``); it holds the kernel to its plain version and times it
@@ -114,9 +123,30 @@ def embedding_bag(records):
     records["embedding_bag"] = timed(fn)
 
 
+def flash_attention_bwd(records):
+    import numpy as np
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_lse_ref
+
+    hq, hkv, t, dh = 32, 8, 4096, 128
+    rng = np.random.default_rng(4)
+    q, k, v, dout = (torch.as_tensor(rng.normal(size=(h, t, dh)).astype(np.float32), device=dev).to(torch.bfloat16)
+                     for h in (hq, hkv, hkv, hq))
+    o, lse = ops._kernel_call(q, k, v, causal=True, q_offset=0, with_lse=True)
+    fn = lambda: ops._bwd_kernel_call(q, k, v, o, lse, dout, causal=True, q_offset=0)
+    want = attention_bwd_lse_ref(q, k, v, o, lse, dout, causal=True, q_offset=0)
+    if not all(torch.allclose(g.float(), w.float(), rtol=3e-2, atol=3e-2) for g, w in zip(fn(), want)):
+        sys.exit("kernel_ab: flash_attention_bwd differs from the plain o/lse backward")
+    del want
+    records["flash_attention_bwd"] = timed(fn)
+    q4, k4, v4 = (x[None].detach().requires_grad_(True) for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+    records["sdpa_backward"] = timed(lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None], retain_graph=True))
+
+
 records = {{}}
 phase = sys.argv[1]
-if phase in ("frontier_gather", "embedding_bag"):
+if phase in ("frontier_gather", "embedding_bag", "flash_attention_bwd"):
     globals()[phase](records)
 else:
     import chip_smoke
@@ -138,7 +168,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--phase", default="phase1_bell",
-                    help="frontier_gather, embedding_bag, or a chip_smoke.py phase function")
+                    help="frontier_gather, embedding_bag, flash_attention_bwd, or a chip_smoke.py phase function")
     args = ap.parse_args(argv)
     roots = {"other": os.path.abspath(args.other), "this": THIS}
     turns = [{"side": side, "records": turn(roots[side], args.phase)}

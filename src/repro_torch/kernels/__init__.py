@@ -4,8 +4,9 @@ Each kernel is one CUDA C++ source under ``src/repro_torch/csrc/`` with a
 plain C entry point that takes raw pointers, sizes and a stream and returns
 ``cudaGetLastError()``. :class:`CudaKernel` compiles that source with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` at the repo
-root (keyed by a hash of the source and the flags, so an edited source
-rebuilds), loads it with :mod:`ctypes`, and counts launches.
+root (keyed by a hash of the source, the headers of ``csrc/`` and the
+flags, so an edited source or header rebuilds), loads it with
+:mod:`ctypes`, and counts launches.
 
 Dispatch is by the device of the tensors a wrapper is given, never by
 ``try``/``except``: a CPU tensor goes to the kernel's plain PyTorch version
@@ -75,7 +76,11 @@ class CudaKernel:
         return _CSRC / self.source
 
     def library_path(self) -> pathlib.Path:
+        """The library's path under ``build/``, keyed by the source, every
+        header of ``csrc/`` (a source may include any of them) and the flags."""
         h = hashlib.sha256(self.source_path.read_bytes())
+        for header in sorted(_CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return _BUILD_ROOT / f"{self.name}-{h.hexdigest()[:16]}.so"
 

@@ -23,15 +23,17 @@ On the card the kernel's output is differentiable: when autograd records
 inside a ``torch.autograd.Function`` (:class:`_FlashAttention`) whose
 forward is one counted launch that also stores each query row's
 log-sum-exp, and whose backward is one counted launch of the hand-written
-backward in ``csrc/flash_attention_bwd.cu`` (:data:`BWD_KERNEL`;
-FlashAttention-2's two passes, dK/dV then dQ, deterministic): route
-``"mma"`` (bfloat16, tensor cores, head dims padded as the forward's) or
-``"ffma"`` (float32). The JAX package has no Pallas backward (it
-differentiates its oracle); the kernel computes that gradient. It raises if
-it fails to build or launch: no plain fallback on the card. A call without
-autograd recording (serving) launches the forward alone and stores no
-log-sum-exp. On the CPU and on ``meta`` the plain forward is differentiated
-by autograd itself.
+backward in ``csrc/flash_attention_bwd.cu`` (:data:`BWD_KERNEL`): route
+``"wgmma"`` for bfloat16 (head dims padded as the forward's), one
+warp-specialised sweep on the tensor cores that keeps dK and dV in
+registers and sums dQ across key tiles into a float32 scratch in a fixed
+key-tile order, so two calls give the same bits; route ``"ffma"`` for
+float32 (FlashAttention-2's two deterministic passes on the float32 pipe).
+The JAX package has no Pallas backward (it differentiates its oracle); the
+kernel computes that gradient. It raises if it fails to build or launch:
+no plain fallback on the card. A call without autograd recording
+(serving) launches the forward alone and stores no log-sum-exp. On the CPU
+and on ``meta`` the plain forward is differentiated by autograd itself.
 
 The JAX package's ``use_kernel`` and ``flat_layout`` switches and its TPU
 tile sizes ``block_q``/``block_k`` have no twin: the device decides, and
@@ -59,13 +61,13 @@ KERNEL = CudaKernel(
 )
 BWD_KERNEL = CudaKernel(
     "flash_attention_bwd", "flash_attention_bwd.cu",
-    [_P] * 10 + [_I64, _I64, _I64, _I64, _I64, _INT, _I64, ctypes.c_float, _INT, _INT, _P],
+    [_P] * 12 + [_I64, _I64, _I64, _I64, _I64, _I64, _INT, _I64, ctypes.c_float, _INT, _INT, _P],
 )
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"ffma": 0, "wgmma": 1}
-_BWD_ROUTES = {"ffma": 0, "mma": 1}
 MAX_HEAD_DIM = 128
-BOX_COLS = 64  # bf16 columns of one 128-byte swizzle box of the wgmma kernel
+BOX_COLS = 64  # bf16 columns of one 128-byte swizzle box of the wgmma kernels
+BWD_QUERY_TILE = 64  # query rows a step of the wgmma backward; its dQ scratch is kept in whole tiles
 
 
 def plan(dtype: torch.dtype, dh: int) -> Tuple[str, int]:
@@ -76,11 +78,10 @@ def plan(dtype: torch.dtype, dh: int) -> Tuple[str, int]:
 
 
 def plan_bwd(dtype: torch.dtype, dh: int) -> Tuple[str, int]:
-    """The backward's route for a CUDA call and the head dim it reads:
-    bfloat16 on the tensor cores (``"mma"``) at the forward's padded head
+    """The backward's route for a CUDA call and the head dim it reads: the
+    forward's, bfloat16 on the tensor cores (``"wgmma"``) at the padded head
     dim, float32 on the float32 pipe (``"ffma"``) at its own."""
-    route, dh_k = plan(dtype, dh)
-    return ("mma" if route == "wgmma" else "ffma"), dh_k
+    return plan(dtype, dh)
 
 
 def flash_attention(
@@ -197,8 +198,8 @@ def _bwd_kernel_call(q, k, v, out, lse, dout, *, causal: bool, q_offset: int):
     route, dh_k = plan_bwd(q.dtype, dh)
     if dh_k != dh:
         q, k, v, out, dout = (F.pad(t, (0, dh_k - dh)) for t in (q, k, v, out, dout))
-    if route == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
-        raise ValueError("the tensor-core backward reads q, k, v, out and dout by cp.async: "
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out, dout, lse)):
+        raise ValueError("the tensor-core backward reads q, k, v, out, dout and lse by TMA: "
                          "they must be 16-byte aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _launch_bwd(route, q, k, v, out, lse, dout, dq, dk, dv, causal=causal, q_offset=q_offset, scale=dh ** -0.5)
@@ -208,14 +209,29 @@ def _bwd_kernel_call(q, k, v, out, lse, dout, *, causal: bool, q_offset: int):
 
 
 def _launch_bwd(route, q, k, v, out, lse, dout, dq, dk, dv, *, causal: bool, q_offset: int, scale: float) -> None:
-    """One counted launch of the backward (its three kernels); Delta's
-    float32 scratch is allocated here."""
+    """One counted launch of the backward (its three kernels). Allocates
+    Delta's float32 scratch and, on ``"wgmma"``, the zeroed dQ sum
+    (``[B·Hq, ceil(Tq/64)·64, Dh]`` float32, freed after the call) and the
+    ints of its ordering: a ticket and one semaphore a (q head, query tile).
+    There the kernel reads lse and Delta by TMA, whose rows must start on 16
+    bytes: at a ``Tq`` that is not a multiple of 4 (decode-like shapes, no
+    training path) lse is copied into rows of a padded stride."""
     bhq, tq, dh = q.shape
     bhkv, tk, _ = k.shape
-    delta = torch.empty((bhq, tq), dtype=torch.float32, device=q.device)
+    ld = tq
+    dq_acc = order = None
+    if route == "wgmma":
+        ld = -(-tq // 4) * 4
+        if ld != tq:
+            lse = F.pad(lse, (0, ld - tq))
+        n_qt = -(-tq // BWD_QUERY_TILE)
+        dq_acc = torch.zeros((bhq, n_qt * BWD_QUERY_TILE, dh), dtype=torch.float32, device=q.device)
+        order = torch.zeros(1 + bhq * n_qt, dtype=torch.int32, device=q.device)
+    delta = torch.empty((bhq, ld), dtype=torch.float32, device=q.device)
     BWD_KERNEL.launch(
         *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
-        bhq, bhkv, tq, tk, dh, int(causal), q_offset, scale, _DTYPES[q.dtype], _BWD_ROUTES[route],
+        *(None if t is None else t.data_ptr() for t in (dq_acc, order)),
+        bhq, bhkv, tq, tk, dh, ld, int(causal), q_offset, scale, _DTYPES[q.dtype], _ROUTES[route],
         torch.cuda.current_stream(q.device).cuda_stream, route=route)
 
 

@@ -547,7 +547,7 @@ def test_cuda_flash_attention_backward_matches_plain_autograd(dtype, tol, b, hq,
     dev = _cuda_or_skip()
     q, k, v, dout = _grad_inputs(dev, 12, dtype, b, hq, hkv, tq, tk, dh)
     before, bwd_before = KERNEL.launches, BWD_KERNEL.launches
-    route = "ffma" if dtype == torch.float32 else "mma"
+    route = "ffma" if dtype == torch.float32 else "wgmma"
     bwd_route = BWD_KERNEL.route_launches.get(route, 0)
     got = torch.autograd.grad(flash_attention(q, k, v, causal=causal, q_offset=qoff), (q, k, v), dout)
     assert KERNEL.launches == before + 1
@@ -580,6 +580,37 @@ def test_cuda_flash_attention_bwd_matches_plain_lse_backward(dtype, tol, b, hq, 
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
     again = ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+#: Several 128-key tiles and a GQA group of 4 into every 64-row query tile:
+#: dQ summed over key tiles in order, dK and dV over the group.
+MULTI_TILE_BWD_SHAPES = [(1, 8, 2, t, t + qoff, 128, causal, qoff)
+                         for t in (1024, 1000) for causal, qoff in ((True, 0), (False, 0), (True, 24))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,causal,qoff", MULTI_TILE_BWD_SHAPES)
+def test_cuda_flash_attention_bwd_multi_tile_gqa(b, hq, hkv, tq, tk, dh, causal, qoff):
+    """The bfloat16 ``wgmma`` backward where each query tile takes dQ from
+    8 key tiles and each kv head sums dK and dV over 4 q heads (T 1,024 and
+    a ragged 1,000; causal, not, and q_offset 24): within 3e-2 of the plain
+    o/lse backward, one launch on ``wgmma``, three calls bit-equal."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_lse_ref
+
+    dev = _cuda_or_skip()
+    q, k, v, dout = (t.detach() for t in _grad_inputs(dev, 14, torch.bfloat16, b, hq, hkv, tq, tk, dh))
+    out, lse = ops._kernel_call(q, k, v, causal=causal, q_offset=qoff, with_lse=True)
+    before = BWD_KERNEL.route_launches.get("wgmma", 0)
+    got = ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
+    assert BWD_KERNEL.route_launches["wgmma"] == before + 1
+    want = attention_bwd_lse_ref(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=3e-2, atol=3e-2)
+    for _ in range(2):
+        again = ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=causal, q_offset=qoff)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 @pytest.mark.cuda

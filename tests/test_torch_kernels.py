@@ -485,10 +485,10 @@ def test_attention_bwd_lse_ref_matches_jax_grad(b, hq, hkv, tq, tk, dh, causal, 
 
 
 @pytest.mark.parametrize("dtype,dh,route,dh_kernel", [
-    (torch.bfloat16, 16, "mma", 64),
-    (torch.bfloat16, 32, "mma", 64),
-    (torch.bfloat16, 64, "mma", 64),
-    (torch.bfloat16, 128, "mma", 128),
+    (torch.bfloat16, 16, "wgmma", 64),
+    (torch.bfloat16, 32, "wgmma", 64),
+    (torch.bfloat16, 64, "wgmma", 64),
+    (torch.bfloat16, 128, "wgmma", 128),
     (torch.float32, 48, "ffma", 48),
     (torch.float32, 128, "ffma", 128),
 ])
@@ -501,7 +501,7 @@ def test_flash_attention_bwd_route_and_padding_plan(dtype, dh, route, dh_kernel)
 @pytest.mark.parametrize("dh", [48, 100])
 def test_flash_attention_bwd_head_dim_padding(monkeypatch, dh):
     """The backward's CUDA branch on bfloat16 CPU tensors with the launch
-    replaced by the plain o/lse backward: one launch on ``"mma"`` at the
+    replaced by the plain o/lse backward: one launch on ``"wgmma"`` at the
     padded head dim with the true head dim's scale, gradients in bfloat16 of
     the unpadded shapes, within 3e-2 of the float32 closed form."""
     calls = []
@@ -520,7 +520,7 @@ def test_flash_attention_bwd_head_dim_padding(monkeypatch, dh):
     out, lse = attention_lse_ref(q, k, v, causal=True, q_offset=qoff)
     got = flash_ops._bwd_kernel_call(q, k, v, out, lse, dout, causal=True, q_offset=qoff)
     dh_k = 64 if dh <= 64 else 128
-    assert calls == [("mma", dh_k, dh_k, dh_k, dh ** -0.5)]
+    assert calls == [("wgmma", dh_k, dh_k, dh_k, dh ** -0.5)]
     want = attention_bwd_ref(*(torch.as_tensor(a.astype(np.float32)) for a in arrs), causal=True, q_offset=qoff)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == torch.bfloat16 and g.shape == x.shape and g.is_contiguous()
@@ -549,3 +549,23 @@ def test_embedding_bag_function_wiring(monkeypatch):
     want = torch.autograd.grad(embedding_bag_ref(t2, idx, w2), (t2, w2), dout)
     for g, ref in zip(got, want):
         torch.testing.assert_close(g, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_library_path_hashes_csrc_headers(tmp_path, monkeypatch):
+    """A kernel's cached library is keyed by its source and by every header
+    of ``csrc/`` (the attention kernels share ``hopper.cuh``): editing a
+    header names a new library, so a stale build is never loaded."""
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    (tmp_path / "shared.cuh").write_text("// header\n")
+    monkeypatch.setattr(kernels, "_CSRC", tmp_path)
+    kernel = kernels.CudaKernel("header_hash_probe", "k.cu", [])
+    try:
+        before = kernel.library_path()
+        assert kernel.library_path() == before
+        (tmp_path / "shared.cuh").write_text("// header, edited\n")
+        after_header = kernel.library_path()
+        assert after_header != before
+        (tmp_path / "k.cu").write_text("// kernel, edited\n")
+        assert kernel.library_path() not in (before, after_header)
+    finally:
+        kernels.KERNELS.pop("header_hash_probe", None)
