@@ -24,7 +24,10 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    at those groups and at granite's prefill shape, two calls bit-equal, the
    ``autograd.Function`` at granite's shape against autograd through the
    plain version, forward plus backward and the backward alone timed beside
-   SDPA's;
+   SDPA's; ``segment_sum`` at the halo products' shapes (the distributed
+   GCN's on GIS, F = 32; the Twitter mesh DiDiC's, F = 4) equal to its
+   plain version on the CPU bit for bit, two launches bit-equal, timed
+   beside ``index_add_``;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -97,12 +100,15 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     meshgraphnet and mace at their ``FULL`` widths, random weights drawn on
     the CPU, on cora_like (2,708 nodes), reddit_like (232,965 nodes, its
     features resident on the card), a 64x64 mesh and 128 molecules, labels
-    from a DiDiC partition run on the card: one forward held to the CPU and
-    to a second card run (graphsage-reddit sampled through
-    ``NeighborSampler((15, 10))`` on 1,024 nodes, and its full graph once),
+    from a DiDiC partition run on the card: one forward held to the CPU and,
+    bit for bit, to a second card run (graphsage-reddit sampled through
+    ``NeighborSampler((15, 10))`` on 1,024 nodes, and its full graph once;
+    its sampled block's gather backward also as a ``segment_sum`` check),
     MACE's energies under a rotation, then 5 trainer steps whose loss must
-    fall; no hand-written kernel is launched; (b) ``launch.train`` for the
-    four archs as in 10b;
+    fall, every sum through ``segment_sum`` and no other kernel launched;
+    (b) ``launch.train`` for the four archs as in 10b, and the faulted card
+    run bit-equal to an uninterrupted card run (every logged loss and the
+    final parameters);
 12. after phase 11, the partitioned service on a process group: an NCCL
     group of one rank on the card, from phase 2's DiDiC maps at
     ``scale=1.0`` (the graphs kept as host arrays): cold sharded replays of
@@ -113,7 +119,7 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     random map and one structural slice with a partial redo, bit-equal to
     a cold batched replay of the grown graph; degraded mode (shard 0
     failed); the halo-exchange DiDiC on Twitter against random and the
-    single-device run; the device-scan ``least_traffic`` log against the
+    single-device run, run twice with bit-equal ``parts`` and ``w``; the device-scan ``least_traffic`` log against the
     host's; two mesh-runtime slices on Twitter against the meshless
     runtime;
 13. after phase 12, the model side of multi-device on an NCCL group of one
@@ -131,8 +137,9 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     a crash leg (admit and commit crashes, shard 0 failed for 4 ticks) of 40
     requests, each equal to the offline replay of its epochs and to the
     other, with no resident state left; (c) the distributed GCN twin on
-    GIS at ``scale=1.0`` folded onto the one shard, 60 steps, its first 5
-    losses against the same run on the CPU (a gloo group of one rank);
+    GIS at ``scale=1.0`` folded onto the one shard, 60 steps, run again with
+    every loss bit-equal, its first 5 losses against the same run on the CPU
+    (a gloo group of one rank);
 14. after phase 13, the capacity store on the card (budget 40 s; past
     1,050 s by the script's clock it cuts its own GIS slices): (a) on
     filesystem at ``scale=1.0`` a store filled exactly is carried and one
@@ -199,7 +206,9 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     them; (b) the Dynamic table with the mesh DiDiC (``"auto"``): the row
     names, each round's T_G % within ``0.25·ref + 0.01`` of phase 6's
     maintained round, round 5 below phase 6's unmaintained map, and
-    ``cycle_s`` beside phase 6's meshless seconds. Phase 0 also times a
+    ``cycle_s`` beside phase 6's meshless seconds; run twice, every round,
+    the last slice's counters, the final map and the carried ``w``
+    bit-equal. Phase 0 also times a
     fixed host-only workload, to read the script's time against.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
@@ -214,11 +223,13 @@ online runs, phase 12's sharded GIS replays, phase 13's online runs and
 phase 14's replays and runs and phase 18's tables (``frontier_gather``),
 and phase 13's mesh forward, phase 15's EP training steps and phase 17's
 TP training step and model ranks' attention (``flash_attention``; the
-training steps' backwards ``flash_attention_bwd``);
+training steps' backwards ``flash_attention_bwd``), and phase 11's trainer
+steps, phase 12's halo DiDiC runs, phase 13's GCN run and phase 18's
+Dynamic tables (``segment_sum``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
-Phase 11's path reaches no kernel (its sums are ``index_add_``), nor does
-phase 16's (a BFS replay and DiDiC's segment route). The
+Phase 16's path reaches no kernel (a BFS replay and DiDiC's segment
+route). The
 launch counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
@@ -254,7 +265,8 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 on the tensor cores
 N_OPS = 10_000               # the paper's evaluation-log length (§6.1)
 DIDIC_ITERATIONS = 100       # the paper's initial partitioning (§7.3)
 B2B = 10                     # calls a back-to-back time runs (each kernel's ms is one call)
-KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention", "flash_attention_bwd")
+KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention", "flash_attention_bwd",
+                "segment_sum")
 
 
 class CheckFailed(RuntimeError):
@@ -540,6 +552,75 @@ def phase1_bell(dev, records):
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:52",
         "max_abs_err": err, "ms": ms, "b2b_ms": b2b_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    }
+
+
+def _bits_equal(a, b) -> bool:
+    """Same shape, dtype and bytes (NaN and the sign of zero included)."""
+    a, b = torch.as_tensor(a).detach().cpu(), torch.as_tensor(b).detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return bool(torch.equal(a, b))
+
+
+def segment_sum_case(data, ids, n, what, dev):
+    """``segment_sum`` on ``data [E, F]`` (on the card) over ``ids``: equal
+    to its plain version run on the CPU bit for bit, two launches bit-equal;
+    timed single and back to back beside the plain version on the card and
+    ``index_add_`` (the library call: the same function, by atomics), the
+    grouping's one-off build timed apart. Returns the record's numbers."""
+    from repro_torch.kernels.segment_sum import segment_order_ref, segment_sum, segment_sum_ref
+
+    e, f = data.shape
+    ids = ids.reshape(-1)
+    order_ms = time_cuda(lambda: segment_order_ref(ids, n), reps=5)[0]
+    got = segment_sum(data, ids, n)
+    want = segment_sum_ref(data.cpu(), ids.cpu().long(), n)
+    check(_bits_equal(got, want), f"segment_sum {what} [{e:,}x{f}] into {n:,} rows: the card == the plain "
+                                  f"version on the CPU, bit for bit")
+    check(_bits_equal(got, segment_sum(data, ids, n)), f"segment_sum {what}: two launches give the same bits")
+    ids64 = ids.long()
+    ms = time_cuda(lambda: segment_sum(data, ids, n))[0]
+    b2b_ms = time_cuda(lambda: segment_sum(data, ids, n), inner=B2B)[0]
+    plain_ms = time_cuda(lambda: segment_sum_ref(data, ids64, n), reps=5)[0]
+    library_ms = time_cuda(lambda: torch.zeros((n, f), device=dev).index_add_(0, ids, data))[0]
+    library_b2b_ms = time_cuda(lambda: torch.zeros((n, f), device=dev).index_add_(0, ids, data), inner=B2B)[0]
+    n_bytes = e * f * 4 + e * 8 + (n + 1) * 8 + n * f * 4   # data, perm, offsets read once; out written once
+    b_ms, b_by = bound_ms(n_bytes, float(e * f))
+    say(f"segment_sum {what} [{e:,}x{f}] into {n:,} rows: kernel {ms:.4f} ms, {b2b_ms:.4f} b2b "
+        f"({100 * b_ms / b2b_ms:.1f} % of the bound); plain (index_add_ into zeros, by atomics) {plain_ms:.4f} ms; "
+        f"index_add_ {library_ms:.4f} ms, {library_b2b_ms:.4f} b2b; bound {b_ms:.4f} ms ({b_by}); the "
+        f"grouping's build (stable sort, offsets) {order_ms:.4f} ms")
+    return {"max_abs_err": float((got.cpu() - want).abs().max()), "ms": ms, "b2b_ms": b2b_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library_b2b_ms": library_b2b_ms, "order_ms": order_ms, "shape": [e, f, n]}
+
+
+def phase1_segment_sum(dev, graphs, records):
+    """``segment_sum`` at the halo products' shapes: the distributed GCN's
+    on GIS (phase 13 (c): one shard, every undirected edge, F = 32) and the
+    Twitter mesh DiDiC's (phases 12 (d) and 18 (b): F = k = 4), the edges
+    as the graph lists them and random features (seed 5); the sampled
+    GraphSAGE block is checked in phase 11. Held bit for bit to the plain
+    version on the CPU. The GIS case is the record's timed shape."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, f in (("twitter", 4), ("gis", 32)):
+        g = graphs[name]
+        s, r, w = g.undirected
+        x = torch.as_tensor(rng.standard_normal((g.n_nodes, f)).astype(np.float32), device=dev)
+        data = torch.as_tensor(w, dtype=torch.float32, device=dev)[:, None] * x[torch.as_tensor(s, device=dev).long()]
+        ids = torch.as_tensor(r, device=dev)
+        what = "the GIS halo product (distributed GCN)" if name == "gis" else "the Twitter mesh DiDiC's product"
+        out[name] = segment_sum_case(data, ids, g.n_nodes, what, dev)
+    records["segment_sum"] = {
+        "name": "segment_sum", "route": "cuda", "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "none: jax.ops.segment_sum (XLA scatter-add), src/repro/distributed/halo.py:181 and "
+                    "src/repro/models/gnn.py:83",
+        **out["gis"], "twitter": out["twitter"],
     }
 
 
@@ -2351,8 +2432,10 @@ GNN_STEPS = 5                   # phase 11a's trainer steps (cut)
 # launcher's 5e-3, and at 1e-3, the 15-block MeshGraphNet's loss rose after
 # that step (a CPU rehearsal); at 1e-4 every FULL config's loss falls.
 GNN_LR = 1e-4
-# index_add_ on the card sums float32 by atomics, in no fixed order: the
-# card is held to the CPU, and to itself, within this relative bar.
+# The card against the CPU: the segment sums are bit-equal (the
+# segment_sum kernel adds in the CPU's order), the matmuls sum in another
+# order. A second card run, and a faulted run against an uninterrupted one,
+# must give the same bits.
 GNN_CARD_RTOL = 1e-4
 # Phase 11b's bar on all 40 logged-step losses, card against CPU, past the
 # first (held to GNN_CARD_RTOL). MeshGraphNet: a ReLU input within float32
@@ -2403,16 +2486,17 @@ def _rel_gap(a, b) -> float:
     return float(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30))
 
 
-def phase11_gnn(arch, dev, smi):
+def phase11_gnn(arch, dev, smi, main_launches):
     """``arch`` at its ``FULL`` width on its ``GNN_DATA`` graph: one forward
     (graphsage-reddit: a sampled 1,024-node batch, fanout 15-10, and the
-    full graph once) held to the CPU and to a second card run, then
-    ``GNN_STEPS`` trainer steps (graphsage-reddit: a new sampled batch a
-    step); MACE's energies also under a rotation."""
+    full graph once) held to the CPU and, bit for bit, to a second card
+    run, then ``GNN_STEPS`` trainer steps (graphsage-reddit: a new sampled
+    batch a step), a main-path run through ``segment_sum``; MACE's
+    energies also under a rotation; graphsage-reddit's sampled block also
+    as a ``segment_sum`` kernel check."""
     import gc
     import itertools
 
-    from repro_torch import kernels
     from repro_torch.configs.base import GNN_SHAPES
     from repro_torch.graphs.sampler import NeighborSampler
     from repro_torch.launch.train import gnn_loss, sage_sampled_batch
@@ -2431,7 +2515,6 @@ def phase11_gnn(arch, dev, smi):
     n_items = g.n_nodes
     record = {"phase": 11, "arch": arch, "card": smi, "nodes": g.n_nodes, "edges": int(b_cpu["senders"].shape[0]),
               "parameters": sum(t.numel() for t in leaves(p_cpu)), "setup_s": setup_s, "didic_s": didic_s}
-    kernels.reset_launch_counts()
     if arch == "graphsage-reddit":
         shape = GNN_SHAPES["minibatch_lg"]
         ns = NeighborSampler(g, shape["fanout"], seed=0)
@@ -2455,9 +2538,16 @@ def phase11_gnn(arch, dev, smi):
         again = loss_fn(params, fwd_batch)
         loss_cpu = loss_fn(p_cpu, {k: v.cpu() for k, v in fwd_batch.items()})
     gaps = (_rel_gap(loss_dev, loss_cpu), _rel_gap(again, loss_dev))
-    check(bool(torch.isfinite(loss_dev)) and max(gaps) <= GNN_CARD_RTOL,
+    check(bool(torch.isfinite(loss_dev)) and gaps[0] <= GNN_CARD_RTOL and _bits_equal(again, loss_dev),
           f"phase 11: {arch} forward loss {float(loss_dev):.6f} on the card, {float(loss_cpu):.6f} on the CPU "
-          f"(gap {gaps[0]:.3g}), a second card run {gaps[1]:.3g} apart (bar {GNN_CARD_RTOL:g})")
+          f"(gap {gaps[0]:.3g}, bar {GNN_CARD_RTOL:g}); a second card run bit-equal")
+    if arch == "graphsage-reddit":
+        # the inner block's gather backward: its gradient [T·fanout, d] summed into the block's sources
+        nbrs = fwd_batch["nbrs1"]
+        grad = torch.as_tensor(np.random.default_rng(6).standard_normal((nbrs.numel(), cfg.d_hidden))
+                               .astype(np.float32), device=dev)
+        record["segment_sum_block"] = segment_sum_case(
+            grad, nbrs, int(fwd_batch["nbrs0"].shape[0]), "a sampled GraphSAGE block's gather backward", dev)
     if arch == "mace":
         q, _ = np.linalg.qr(np.random.default_rng(0).normal(size=(3, 3)))
         q[:, 0] *= np.sign(np.linalg.det(q))
@@ -2476,22 +2566,23 @@ def phase11_gnn(arch, dev, smi):
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(loss_fn, params, AdamWConfig(lr=GNN_LR, warmup_steps=1, total_steps=GNN_STEPS, weight_decay=0.0),
                  TrainerConfig(total_steps=GNN_STEPS, log_every=1))
-    tr.fit(data)
+    _, counts = _counted(lambda: tr.fit(data), main_launches)
     peak = torch.cuda.max_memory_allocated()
-    counts = kernels.launch_counts()
     losses = [m["loss"] for m in tr.metrics_log]
     step_s = [m["step_time_s"] for m in tr.metrics_log]
     check(len(losses) == GNN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"phase 11: {arch} {GNN_STEPS} trainer steps, losses finite, step {GNN_STEPS}'s below step 1's "
           f"({', '.join(f'{x:.4f}' for x in losses)})")
-    check(not any(counts.values()), f"phase 11: {arch} launched no hand-written kernel (segment sums only)")
+    check(counts["segment_sum"] > 0 and not any(n for k, n in counts.items() if k != "segment_sum"),
+          f"phase 11: {arch}'s {GNN_STEPS} steps summed through segment_sum ({counts['segment_sum']} launches) "
+          f"and launched no other kernel")
     median_s = statistics.median(step_s)
     record.update({
         "forward_ms": fwd_ms, "forward_b2b_ms": b2b_ms, "loss": float(loss_dev), "loss_cpu": float(loss_cpu), "card_cpu_gap": gaps[0],
         "card_card_gap": gaps[1], "losses": losses, "step_ms": [x * 1e3 for x in step_s],
         "median_step_ms": median_s * 1e3, "items_per_s_forward": n_items / (fwd_ms / 1e3),
         "items_per_s_step": n_items / median_s, "peak_device_bytes": peak,
-        "redispatches": tr.straggler.redispatches,
+        "redispatches": tr.straggler.redispatches, "launches": counts,
     })
     say(f"phase 11: {arch} ({cfg.name}, {record['parameters']:,} parameters; {g.n_nodes:,} nodes): forward "
         f"{fwd_ms:.3f} ms, {b2b_ms:.3f} b2b ({record['items_per_s_forward']:,.0f} "
@@ -2504,21 +2595,26 @@ def phase11_gnn(arch, dev, smi):
 def phase11_launchers(dev, smi):
     """``launch.train`` on the card and on the CPU for the four GNN archs,
     ``LAUNCH_STEPS`` steps each with a checkpoint directory under ``build/``
-    and a fault at step ``LAUNCH_FAULT_STEP``."""
+    and a fault at step ``LAUNCH_FAULT_STEP`` (the labels' DiDiC map drawn
+    once an arch, on the CPU, as the launcher draws it); the faulted card run
+    bit-equal to an uninterrupted card run (every logged loss and the final
+    parameters: the reference's bit-exact resume)."""
     import shutil
 
-    from repro_torch.launch.train import train_gnn
+    from repro_torch.launch.train import gnn_parts, train_gnn
+    from repro_torch.optim.adamw import leaves
     from repro_torch.train.fault import FaultInjector
 
     out = {}
     for arch in GNN_ARCHS:
+        parts = None if arch == "mace" else gnn_parts(arch)
         runs = {}
         for device in ("cuda", "cpu"):
             ckpt_dir = os.path.join(ROOT, "build", "phase11_ckpt", f"{arch}-{device}")
             shutil.rmtree(ckpt_dir, ignore_errors=True)
             t0 = time.perf_counter()
             tr = train_gnn(arch, LAUNCH_STEPS, ckpt_dir, device=dev if device == "cuda" else "cpu",
-                           fault_injector=FaultInjector(fail_at_steps=(LAUNCH_FAULT_STEP,)))
+                           fault_injector=FaultInjector(fail_at_steps=(LAUNCH_FAULT_STEP,)), parts=parts)
             wall = time.perf_counter() - t0
             runs[device] = (tr, wall)
             check(tr.step == LAUNCH_STEPS and tr.recoveries == 1
@@ -2526,6 +2622,14 @@ def phase11_launchers(dev, smi):
                   f"phase 11: launch.train {arch} on {device}: recovered from the fault at step {LAUNCH_FAULT_STEP} "
                   f"and ended at step {LAUNCH_STEPS} with its checkpoint ({wall:.2f} s)")
             shutil.rmtree(ckpt_dir)
+        t0 = time.perf_counter()
+        whole = train_gnn(arch, LAUNCH_STEPS, None, device=dev, parts=parts)
+        whole_s = time.perf_counter() - t0
+        faulted = runs["cuda"][0]
+        check([m["loss"] for m in faulted.metrics_log] == [m["loss"] for m in whole.metrics_log]
+              and all(map(_bits_equal, leaves(faulted.state["params"]), leaves(whole.state["params"]))),
+              f"phase 11: launch.train {arch} on the card: the run recovered from the fault == an uninterrupted "
+              f"run ({whole_s:.2f} s), every logged loss and every final parameter bit for bit")
         losses = [m["loss"] for m in runs["cuda"][0].metrics_log]
         cpu_losses = [m["loss"] for m in runs["cpu"][0].metrics_log]
         first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
@@ -2537,7 +2641,8 @@ def phase11_launchers(dev, smi):
         check(len(losses) == len(cpu_losses) and gaps[0] <= GNN_CARD_RTOL and (rtol is None or max(gaps) <= rtol),
               f"phase 11: launch.train {arch}: the card's first logged loss within {gaps[0]:.3g} of the CPU's "
               f"(bar {GNN_CARD_RTOL:g}); over all {len(losses)} at most {max(gaps):.3g} apart (bar {rtol})")
-        out[arch] = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "losses": losses, "cpu_losses": cpu_losses,
+        out[arch] = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "uninterrupted_s": whole_s,
+                     "losses": losses, "cpu_losses": cpu_losses,
                      "rel_gaps": gaps, "recoveries": runs["cuda"][0].recoveries,
                      "redispatches": runs["cuda"][0].straggler.redispatches}
         say(f"phase 11: launch.train {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, card {runs['cuda'][1]:.2f} s, "
@@ -2572,6 +2677,25 @@ def _damaged(parts, k, seed):
     return out
 
 
+def _keep_mesh_states(fn):
+    """``fn()`` and the final diffusion state of every mesh DiDiC run inside
+    it (``didic_partition_distributed`` returns the map only; its loads
+    ``w`` are this rank's block of the state ``_run_mesh`` returns)."""
+    from repro_torch.core import didic_distributed
+
+    states, run_mesh = [], didic_distributed._run_mesh
+
+    def keep(*args, **kwargs):
+        states.append(run_mesh(*args, **kwargs))
+        return states[-1]
+
+    didic_distributed._run_mesh = keep
+    try:
+        return fn(), states
+    finally:
+        didic_distributed._run_mesh = run_mesh
+
+
 def phase12(held, dev, smi, main_launches):
     """The partitioned service on a process group (NCCL, world size 1) at
     ``scale=1.0`` from phase 2's DiDiC maps: (a) cold sharded replays of
@@ -2585,7 +2709,8 @@ def phase12(held, dev, smi, main_launches):
     partial redo, bit-equal to a cold batched replay of the grown graph;
     (c) degraded mode: shard 0 failed, the replay bit-equal and counted;
     (d) the halo-exchange DiDiC on Twitter, 20 iterations, against random
-    and the single-device DiDiC, and a damaged map refined; (e) a
+    and the single-device DiDiC, run twice (``parts`` and ``w`` bit-equal,
+    its ``segment_sum`` launches counted), and a damaged map refined; (e) a
     device-scan ``least_traffic`` log at 5 % on filesystem equal to the
     host log; (f) two mesh-runtime slices on Twitter bit-equal to the
     meshless runtime."""
@@ -2697,14 +2822,23 @@ def phase12(held, dev, smi, main_launches):
               "phase 12: filesystem recovered: sharded again, bit-equal, no new degraded replay")
         out["degraded"] = health
 
-        # (d) the halo-exchange DiDiC on Twitter.
+        # (d) the halo-exchange DiDiC on Twitter, twice: parts and w bit-equal.
         g = held["twitter"]["graph"]
         cfg = DidicConfig(k=4, iterations=20, smooth_cap=64)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p_mesh, _ = didic_partition_distributed(g, cfg, mesh, seed=0)
-        torch.cuda.synchronize()
-        mesh_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ((p_mesh, _), states), counts = _counted(
+                lambda: _keep_mesh_states(lambda: didic_partition_distributed(g, cfg, mesh, seed=0)), main_launches)
+            torch.cuda.synchronize()
+            runs.append((p_mesh, states[-1].w, time.perf_counter() - t0, counts))
+        mesh_s = runs[0][2]
+        check(np.array_equal(runs[0][0], runs[1][0]) and _bits_equal(runs[0][1], runs[1][1]),
+              f"phase 12: twitter halo DiDiC, 20 iterations run twice: parts and w bit-equal "
+              f"({runs[0][2]:.2f} s, {runs[1][2]:.2f} s)")
+        check(runs[0][3]["segment_sum"] > 0, f"phase 12: the halo DiDiC summed through segment_sum "
+                                             f"({runs[0][3]['segment_sum']} launches a run)")
         t0 = time.perf_counter()
         p_one, _ = didic_partition(g, cfg, seed=0, device=dev)
         torch.cuda.synchronize()
@@ -2722,7 +2856,8 @@ def phase12(held, dev, smi, main_launches):
         check(cut["refined"] < cut["damaged"], f"phase 12: one halo refine iteration: cut "
                                                f"{cut['damaged']:.4f} -> {cut['refined']:.4f}")
         out["didic"] = {"cuts": cut, "mesh_s_per_iteration": mesh_s / cfg.iterations,
-                        "single_s_per_iteration": one_s / cfg.iterations}
+                        "single_s_per_iteration": one_s / cfg.iterations, "mesh_s": [r[2] for r in runs],
+                        "segment_sum_launches": runs[0][3]["segment_sum"]}
         say(f"phase 12: twitter DiDiC 20 iterations: halo exchange {mesh_s:.2f} s, single device "
             f"{one_s:.2f} s")
 
@@ -2778,7 +2913,7 @@ EP_MODEL_RANKS = 4              # 13a: the model ranks one card plays in turn
 EP_RANKS_ATOL_STEPS = 4         # their summed parts against moe_fwd: bf16 steps of the largest entry
 GCN_STEPS = 60                  # the JAX example's steps
 GCN_CPU_STEPS = 5               # the CPU run the card's first losses are held to
-GCN_CPU_RTOL = 1e-4             # index_add_ sums by atomics on the card
+GCN_CPU_RTOL = 1e-4             # the card's matmuls sum in another order (its segment sums in the CPU's)
 
 
 def _phase13_lm_config():
@@ -3001,11 +3136,13 @@ def _phase13_online(held, dev, main_launches):
     return rec
 
 
-def _phase13_gcn(held, mesh, dev, steps):
+def _phase13_gcn(held, mesh, dev, steps, main_launches):
     """(c) The distributed GCN twin at world size 1 on GIS at ``scale=1.0``,
-    phase 2's DiDiC map folded onto the one shard, ``steps`` steps; the halo bytes
-    of the random and DiDiC placements at 4 shards (host numbers). Returns
-    the record and the initial parameters (drawn on the CPU)."""
+    phase 2's DiDiC map folded onto the one shard, ``steps`` steps (a
+    main-path run through ``segment_sum``), then run again, every loss
+    bit-equal; the halo bytes of the random and DiDiC placements at 4
+    shards (host numbers). Returns the record and the initial parameters
+    (drawn on the CPU)."""
     from repro_torch import distributed_gnn_training as twin
     from repro_torch.core import partitioners
     from repro_torch.models import gnn
@@ -3018,17 +3155,23 @@ def _phase13_gcn(held, mesh, dev, steps):
           f"{table['random'][0]:.0f} (edge cut {table['didic'][1]:.4f} against {table['random'][1]:.4f})")
     params0 = gnn.gcn_init(twin.CFG, torch.Generator().manual_seed(0), device="cpu")
     torch.cuda.reset_peak_memory_stats()
-    run = twin.train(g, parts, mesh, steps=steps, params={k: v.to(dev) for k, v in params0.items()})
+    run, counts = _counted(lambda: twin.train(g, parts, mesh, steps=steps,
+                                              params={k: v.to(dev) for k, v in params0.items()}), main_launches)
     peak = torch.cuda.max_memory_allocated()
     losses = run.losses
     check(len(losses) == steps and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"phase 13: distributed GCN on GIS ({g.n_nodes:,} nodes, {run.layout.n_shards} shard), "
           f"{steps} steps: losses finite, {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(counts["segment_sum"] > 0, f"phase 13: the GCN's halo product summed through segment_sum "
+                                     f"({counts['segment_sum']} launches)")
+    again = twin.train(g, parts, mesh, steps=steps, params={k: v.to(dev) for k, v in params0.items()})
+    check(again.losses == losses, f"phase 13: the distributed GCN run again: all {steps} losses bit-equal")
     rec = {"nodes": g.n_nodes, "shards": run.layout.n_shards, "steps": steps,
            "halo_bytes_4_shards": {k: v[0] for k, v in table.items()},
            "edge_cut_4_shards": {k: v[1] for k, v in table.items()},
            "losses": losses, "train_s": run.seconds, "step_ms": run.seconds / steps * 1e3,
-           "evals": run.evals, "peak_device_bytes": peak}
+           "again_step_ms": again.seconds / steps * 1e3, "evals": run.evals, "peak_device_bytes": peak,
+           "launches": counts}
     say(f"phase 13: distributed GCN {rec['step_ms']:.2f} ms a step, peak {peak / 1e9:.3f} GB")
     return rec, params0
 
@@ -3061,7 +3204,8 @@ def phase13(held, dev, smi, main_launches, t_start):
         out["online"] = _phase13_online(held, dev, main_launches)
         out["online_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["gcn"], params0 = _phase13_gcn(held, mesh, dev, PHASE13_CUT_GCN_STEPS if cut else GCN_STEPS)
+        out["gcn"], params0 = _phase13_gcn(held, mesh, dev, PHASE13_CUT_GCN_STEPS if cut else GCN_STEPS,
+                                           main_launches)
         out["gcn"]["part_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -4187,11 +4331,29 @@ def phase18(held, dev, smi, main_launches, t_start):
             res["stress"] = got
             res["stress_launches"] = counts
             # (b) Dynamic, maintenance="auto": the mesh DiDiC, seeded from
-            # the map; in the band of phase 6's maintained rounds.
-            rows, res["dynamic_s"], counts = _phase18_table(
-                bench, name, lambda: bench.dynamic_experiment(mesh=mesh), main_launches)
+            # the map; in the band of phase 6's maintained rounds; run twice,
+            # every round, the final map and the carried w bit-equal.
+            made, runtime_for = [], bench._runtime_for
+            bench._runtime_for = lambda *a, **k: made.append(runtime_for(*a, **k)) or made[-1]
+            try:
+                rows, res["dynamic_s"], counts = _phase18_table(
+                    bench, name, lambda: bench.dynamic_experiment(mesh=mesh), main_launches)
+                again, res["dynamic_again_s"], _ = _phase18_table(
+                    bench, name, lambda: bench.dynamic_experiment(mesh=mesh), {})
+            finally:
+                del bench._runtime_for
             check(list(rows) == row_names(one, "dynamic"),
                   f"phase 18 (b): {name} Dynamic row names == row_names(cfg, \"dynamic\")")
+            first, second = (rt.service for rt in made)
+            check(all(rows[k].value == again[k].value for k in rows if not k.endswith("/cycle_s"))
+                  and _exact(made[0].last_result, made[1].last_result)
+                  and np.array_equal(first.parts, second.parts)
+                  and _bits_equal(first.runtime.state.w, second.runtime.state.w),
+                  f"phase 18 (b): {name} Dynamic on the mesh DiDiC run twice: every round's T_G % and migrated "
+                  f"count, the last slice's four counters, the final map and the carried w bit-equal "
+                  f"({res['dynamic_s']:.2f} s, {res['dynamic_again_s']:.2f} s)")
+            check(counts["segment_sum"] > 0, f"phase 18 (b): {name}'s mesh DiDiC summed through segment_sum "
+                                             f"({counts['segment_sum']} launches)")
             rounds = [rows[f"dynamic/{name}/round{i + 1}/percent_global"].value for i in range(5)]
             migrated = [rows[f"dynamic/{name}/round{i + 1}/migrated_vertices"].value for i in range(5)]
             cyc = rows[f"dynamic/{name}/cycle_s"]
@@ -4249,6 +4411,7 @@ def main() -> int:
     phase1_flash(dev, records)
     phase1_flash_groups(dev)
     phase1_flash_backward(dev, records)
+    phase1_segment_sum(dev, graphs, records)
     say(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {}
@@ -4297,7 +4460,7 @@ def main() -> int:
     say(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     t11 = time.perf_counter()
     for arch in GNN_ARCHS:
-        phase11_gnn(arch, dev, smi)
+        phase11_gnn(arch, dev, smi, main_launches)
     say(f"phase 11a done at {time.perf_counter() - t_start:.1f} s")
     phase11_launchers(dev, smi)
     say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t11:.1f} s)")
@@ -4321,7 +4484,9 @@ def main() -> int:
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
         "replays of phase 12, the mesh forward and the mesh online runs of phase 13, the replays and "
         "runs of phase 14, the EP training steps of phase 15, the TP step and the model ranks' "
-        "attention of phase 17, the mesh tables of phase 18): " + json.dumps(main_launches, sort_keys=True))
+        "attention of phase 17, the mesh tables of phase 18; segment_sum: the trainer steps of phase 11, "
+        "the halo DiDiC of phase 12, the GCN of phase 13, the Dynamic tables of phase 18): "
+        + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)
         check(n > 0, f"{name} launched on the main path ({n} times)")

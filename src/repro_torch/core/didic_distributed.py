@@ -22,9 +22,13 @@ rank, and each rank keeps its block.
   with the diffusion state carried sharded between calls and the pinned
   vertices restored on the host.
 
-Both run the single-device arithmetic summed in another order (per-rank
-``index_add_`` plus the collectives against one fixed-order reduction), so
-they match the single-device DiDiC in quality, not bit for bit.
+Both run the single-device arithmetic summed in another order (each
+rank's halo product plus the collectives against one reduction over the
+whole graph), so they match the single-device DiDiC in quality, not bit for
+bit. Each order is fixed all the same: the halo product sums through the
+port's fixed-order ``segment_sum`` (on the card its kernel), so a mesh
+DiDiC run repeats bit for bit, and a retried maintenance pass is
+bit-identical.
 
 A store-backed graph (the delta-overlay growth path) is refined through a
 **capacity mesh program** (:class:`_CapacityMeshProgram`), cached on the

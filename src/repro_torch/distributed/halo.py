@@ -11,10 +11,15 @@ index table built on the host.
 Collective volume a step = S × B_max × F × bytes, where B_max tracks the
 edge cut: a better DiDiC partitioning shrinks the collective. The tables
 are built in numpy, array for array the JAX package's; the product runs
-on each rank in torch (``all_gather``, then ``index_add_``). The exchange
-is a ``torch.autograd.Function``, so a loss reaches the boundary rows of
-every rank: its backward reduce-scatters the gathered rows' gradient back
-to the ranks that exported them (:class:`_HaloExchange`).
+on each rank in torch (``all_gather``, then the port's fixed-order segment
+sum, :mod:`repro_torch.kernels.segment_sum`: on the card the hand-written
+``segment_sum`` kernel, which adds each row's edges in edge order, so a
+retried DiDiC pass or a re-run training step repeats bit for bit). The
+exchange is a ``torch.autograd.Function``, so a loss reaches the boundary
+rows of every rank: its backward reduce-scatters the gathered rows'
+gradient back to the ranks that exported them (:class:`_HaloExchange`).
+Every gather of the product, and the exchange's backward, sums its
+gradient through the same kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from repro_torch.distributed.counters import data_shard_count
 from repro_torch.distributed.placement import PartitionedLayout
 from repro_torch.graphs.structure import Graph
+from repro_torch.kernels.segment_sum import gather, segment_sum
 
 __all__ = ["HaloProgram", "build_halo_program", "make_partitioned_spmm"]
 
@@ -151,21 +157,18 @@ class _HaloExchange(torch.autograd.Function):
     """Every data shard's boundary rows ``x_local[bidx]``, gathered along
     ``axes`` in shard order to ``[S·B_max, F]``. Backward: the gathered
     rows' gradient summed over the shards, each keeping its own block (a
-    reduce-scatter), added into its rows. Every rank of the data group must
-    take part in both directions."""
+    reduce-scatter), added into its rows by the fixed-order segment sum.
+    Every rank of the data group must take part in both directions."""
 
     @staticmethod
     def forward(ctx, x_local, bidx, mesh, axes):
-        ctx.save_for_backward(bidx)
-        ctx.mesh, ctx.axes, ctx.n_rows = mesh, axes, x_local.shape[0]
+        ctx.bidx, ctx.mesh, ctx.axes, ctx.n_rows = bidx, mesh, axes, x_local.shape[0]
         return torch.cat(mesh.all_gather(x_local[bidx], axis=axes), dim=0)
 
     @staticmethod
     def backward(ctx, grad_all):
-        (bidx,) = ctx.saved_tensors
         mine = ctx.mesh.reduce_scatter(grad_all, axis=ctx.axes)    # [B_max, F]
-        grad = torch.zeros((ctx.n_rows, mine.shape[1]), dtype=mine.dtype, device=mine.device)
-        return grad.index_add_(0, bidx, mine), None, None, None
+        return segment_sum(mine, ctx.bidx, ctx.n_rows), None, None, None
 
 
 def make_partitioned_spmm(
@@ -174,7 +177,9 @@ def make_partitioned_spmm(
     """Return ``x_local [block, F] → Σ_e w·x[src]`` for this rank's block,
     with the halo exchange: this rank's boundary rows go into one
     ``all_gather``, its ghosts are read from the result, and its edges are
-    summed into its rows with ``index_add_``. The JAX twin takes the whole
+    summed into its rows by the fixed-order segment sum, in edge order (on
+    the card the edges' grouping by row is built at the first call and kept
+    on this rank's index tables). The JAX twin takes the whole
     ``[S·block, F]`` array sharded over the mesh; here each rank passes and
     gets back its own block: the block of its index along ``data_axes``,
     exchanged with the ranks of its data group only (on a mesh with a model
@@ -191,8 +196,7 @@ def make_partitioned_spmm(
 
     def spmm(x_local: torch.Tensor) -> torch.Tensor:
         all_b = _HaloExchange.apply(x_local, bidx, mesh, data_axes)  # [S·B_max, F]
-        xx = torch.cat([x_local, all_b[gsrc]], dim=0)
-        out = torch.zeros((block, x_local.shape[1]), dtype=x_local.dtype, device=x_local.device)
-        return out.index_add_(0, edst, coef[:, None] * xx[esrc])
+        xx = torch.cat([x_local, gather(all_b, gsrc)], dim=0)
+        return segment_sum(coef[:, None] * gather(xx, esrc), edst, block)
 
     return spmm

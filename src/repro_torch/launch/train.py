@@ -106,13 +106,27 @@ def train_recsys(arch: str, steps: int, ckpt_dir: Optional[str], device=None,
 GNN_KINDS = {"gcn-cora": "gcn", "graphsage-reddit": "sage", "meshgraphnet": "meshgraphnet"}
 
 
+def _gnn_graph(arch: str):
+    from repro_torch.graphs import datasets
+
+    return datasets.load("gis" if arch == "meshgraphnet" else "cora_like", scale=0.01)
+
+
+def gnn_parts(arch: str) -> np.ndarray:
+    """The DiDiC partition behind a GNN arch's labels (k=4, 30 iterations,
+    on the CPU), as :func:`gnn_task` draws it when given none."""
+    from repro_torch.core.didic import DidicConfig, didic_partition
+
+    parts, _ = didic_partition(_gnn_graph(arch), DidicConfig(k=4, iterations=30), seed=0, device="cpu")
+    return parts
+
+
 def gnn_task(arch: str, device=None, parts: Optional[np.ndarray] = None) -> Tuple[object, Dict, Dict]:
     """``(cfg, params, batch)`` of the JAX launcher's task for a GNN arch or
     ``mace``, on ``device``; ``batch`` holds the whole graph's tensors, the
     same every step. ``parts`` replaces the DiDiC partition behind the GNN
     labels; without it DiDiC runs on the CPU, whose draws do not depend on
     where the model trains."""
-    from repro_torch.core.didic import DidicConfig, didic_partition
     from repro_torch.data.pipeline import gnn_features
     from repro_torch.graphs import datasets
     from repro_torch.models import gnn, mace
@@ -128,9 +142,9 @@ def gnn_task(arch: str, device=None, parts: Optional[np.ndarray] = None) -> Tupl
         batch.update(senders=mol.senders, receivers=mol.receivers,
                      target=np.random.default_rng(0).normal(size=n_mols).astype(np.float32))
     else:
-        g = datasets.load("gis" if arch == "meshgraphnet" else "cora_like", scale=0.01)
+        g = _gnn_graph(arch)
         if parts is None:
-            parts, _ = didic_partition(g, DidicConfig(k=4, iterations=30), seed=0, device="cpu")
+            parts = gnn_parts(arch)
         x, labels = gnn_features(g.n_nodes, 32, 4, parts_hint=parts)
         s, r, _ = g.undirected
         kind = GNN_KINDS[arch]
@@ -180,10 +194,11 @@ def gnn_loss(cfg, p, b: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def train_gnn(arch: str, steps: int, ckpt_dir: Optional[str], device=None,
-              fault_injector: Optional[FaultInjector] = None) -> Trainer:
-    """Train the JAX launcher's task of GNN arch or ``mace`` (:func:`gnn_task`)
-    for ``steps`` steps; returns the trainer."""
-    cfg, params, batch = gnn_task(arch, device)
+              fault_injector: Optional[FaultInjector] = None,
+              parts: Optional[np.ndarray] = None) -> Trainer:
+    """Train the JAX launcher's task of GNN arch or ``mace`` (:func:`gnn_task`,
+    ``parts`` as there) for ``steps`` steps; returns the trainer."""
+    cfg, params, batch = gnn_task(arch, device, parts=parts)
     tr = Trainer(
         lambda p, b: gnn_loss(cfg, p, b), params,
         AdamWConfig(lr=5e-3, warmup_steps=5, total_steps=steps, weight_decay=0.0),

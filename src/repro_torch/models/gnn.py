@@ -1,12 +1,19 @@
 """Message-passing GNNs: GCN, GraphSAGE (full and sampled), MeshGraphNet.
 
 Twin of ``repro.models.gnn``. Messages are gathered along an edge index
-and reduced per receiving node; ``jax.ops.segment_sum`` becomes
-``index_add`` into an explicit zero output (on the card a float32 sum by
-atomics, so the card's sums are not bit-reproducible). Parameters keep the
-JAX package's names and orientation (``y = x @ W``); MeshGraphNet's
-processor stays stacked ``[L, ...]`` and a Python loop takes the place of
-``lax.scan``. No kernel: the JAX models call no Pallas kernel either.
+and reduced per receiving node; ``jax.ops.segment_sum`` becomes the port's
+fixed-order segment sum (:mod:`repro_torch.kernels.segment_sum`): on the
+CPU ``index_add_`` into an explicit zero output, on the card the
+hand-written ``segment_sum`` kernel, which adds each node's messages in
+edge order, so the card's sums equal the CPU's and repeat bit for bit. The
+gathers of node states along the edges go through the same module's
+:func:`~repro_torch.kernels.segment_sum.gather`, so their backwards sum
+through the kernel too. Edge indices are used as given, not copied to
+int64 each call: the grouping the kernel keeps on an index tensor is then
+built once a graph. Parameters keep the JAX package's names and
+orientation (``y = x @ W``); MeshGraphNet's processor stays stacked
+``[L, ...]`` and a Python loop takes the place of ``lax.scan``. The JAX
+models call no Pallas kernel.
 
 Configs: gcn-cora (2 layers, d 16, symmetric-normalised mean;
 arXiv:1609.02907), graphsage-reddit (2 layers, d 128, mean, fanout 15-10;
@@ -22,6 +29,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import segment_sum as seg
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -49,9 +57,9 @@ class GnnConfig:
 
 # -------------------------------------------------------------- primitives
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``out[i] = Σ data[j] over segment_ids[j] == i`` (``jax.ops.segment_sum``)."""
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
-    return out.index_add(0, segment_ids, data)
+    """``out[i] = Σ data[j] over segment_ids[j] == i`` (``jax.ops.segment_sum``),
+    summed in ascending ``j`` on every device."""
+    return seg.segment_sum(data, segment_ids, num_segments)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -85,13 +93,12 @@ def gcn_forward(cfg: GnnConfig, params: Params, x: torch.Tensor, senders: torch.
                 receivers: torch.Tensor) -> torch.Tensor:
     """Node outputs ``[N, d_out]`` from features ``[N, d_in]`` over the
     symmetrized edges."""
-    senders, receivers = senders.long(), receivers.long()
     n = x.shape[0]
     coeff = gcn_norm_coeffs(senders, receivers, n)
     self_coeff = 1.0 / _degree_plus_one(senders, n)
     for i in range(cfg.n_layers):
         x = x @ params[f"w{i}"]
-        agg = segment_sum(coeff[:, None] * x[receivers], senders, n)
+        agg = segment_sum(coeff[:, None] * seg.gather(x, receivers), senders, n)
         x = agg + self_coeff[:, None] * x
         if i < cfg.n_layers - 1:
             x = torch.relu(x)
@@ -111,10 +118,9 @@ def sage_init(cfg: GnnConfig, gen: torch.Generator, device=None) -> Params:
 
 def sage_forward_full(cfg: GnnConfig, params: Params, x: torch.Tensor, senders: torch.Tensor,
                       receivers: torch.Tensor) -> torch.Tensor:
-    senders, receivers = senders.long(), receivers.long()
     n = x.shape[0]
     for i in range(cfg.n_layers):
-        nbr = segment_mean(x[receivers], senders, n)
+        nbr = segment_mean(seg.gather(x, receivers), senders, n)
         x = x @ params[f"w_self{i}"] + nbr @ params[f"w_nbr{i}"]
         if i < cfg.n_layers - 1:
             x = torch.relu(x)
@@ -134,9 +140,9 @@ def sage_forward_sampled(
     first rows of its sources."""
     h = feats[0]
     for i in range(cfg.n_layers):
-        nbrs = neighbors[i].long()
+        nbrs = neighbors[i]
         mask = masks[i]
-        gathered = h[nbrs]                                   # [T, F, d]
+        gathered = seg.gather(h, nbrs)                       # [T, F, d]
         denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
         nbr = (gathered * mask[..., None]).sum(dim=1) / denom
         self_h = h[: nbrs.shape[0]]
@@ -179,13 +185,12 @@ def _layer(tree, i: int):
 
 def mgn_forward(cfg: GnnConfig, params: Params, node_feat: torch.Tensor, edge_feat: torch.Tensor,
                 senders: torch.Tensor, receivers: torch.Tensor) -> torch.Tensor:
-    senders, receivers = senders.long(), receivers.long()
     n = node_feat.shape[0]
     h = L.mlp(params["enc_node"], node_feat)
     e = L.mlp(params["enc_edge"], edge_feat)
     for i in range(cfg.n_layers):
         lp = _layer(params["proc"], i)
-        msg_in = torch.cat([e, h[senders], h[receivers]], dim=-1)
+        msg_in = torch.cat([e, seg.gather(h, senders), seg.gather(h, receivers)], dim=-1)
         e = e + L.layernorm(lp["ln_e"], L.mlp(lp["edge_mlp"], msg_in))
         agg = segment_sum(e, receivers, n)
         h = h + L.layernorm(lp["ln_n"], L.mlp(lp["node_mlp"], torch.cat([h, agg], dim=-1)))
@@ -202,7 +207,11 @@ def init(cfg: GnnConfig, gen: torch.Generator, device=None) -> Params:
 def node_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
                              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+    # Each row's label entry as a sum over a one-hot mask, whose other terms
+    # are exact zeros: no scatter in the backward (torch.gather's is a
+    # scatter_add, by atomics on the card).
+    hot = torch.nn.functional.one_hot(labels.long(), logp.shape[-1]).to(logp.dtype)
+    nll = -(logp * hot).sum(dim=-1)
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -9,7 +9,9 @@ direction r̂, weighted per channel by a radial mixer of an ``n_rbf``
 Bessel basis with a smooth cutoff; correlation order 3 comes from the
 products at the node (|v|², T·v, tr(T·T')). The energy is a readout of the
 scalars summed per molecule, so it is invariant under rotation and
-translation. Aggregation is ``index_add`` (see ``models/gnn.py``). The
+translation. Aggregation, and every gather along the edges or the species,
+goes through the port's fixed-order segment sum (see ``models/gnn.py``),
+so the card's energies and gradients repeat bit for bit. The
 last layer's ``mix_v`` and ``mix_t`` feed only ``v`` and ``T``, which the
 readout never reads: their gradients are zero.
 """
@@ -23,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.segment_sum import gather
 from repro_torch.models import layers as L
 from repro_torch.models.gnn import segment_sum
 
@@ -96,14 +99,13 @@ def forward(
     n_mols: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(energy per molecule ``[n_mols]``, scalars per atom ``[N, C]``)."""
-    senders, receivers = senders.long(), receivers.long()
     n = species.shape[0]
     c = cfg.d_hidden
-    s = params["species_embed"][species.long()]
+    s = gather(params["species_embed"], species)
     v = torch.zeros((n, c, 3), dtype=cfg.dtype, device=pos.device)
     t = torch.zeros((n, c, 3, 3), dtype=cfg.dtype, device=pos.device)
 
-    rij = pos[receivers] - pos[senders]
+    rij = gather(pos, receivers) - gather(pos, senders)
     dist = torch.linalg.norm(rij + 1e-9, dim=-1)
     rhat = rij / torch.clamp(dist, min=1e-6)[:, None]
     rbf = bessel_rbf(dist, cfg.n_rbf, cfg.r_cut)
@@ -115,7 +117,7 @@ def forward(
         rt = L.mlp(lp["radial_t"], rbf)
 
         # messages (A-features): equivariant products with r̂
-        src_s, src_v, src_t = s[senders], v[senders], t[senders]
+        src_s, src_v, src_t = gather(s, senders), gather(v, senders), gather(t, senders)
         m_s = rs * src_s
         m_v = rv[:, :, None] * (src_s[:, :, None] * rhat[:, None, :] + src_v)
         m_t = rt[:, :, None, None] * (
@@ -142,5 +144,5 @@ def forward(
         t = t + torch.einsum("nmij,mk->nkij", cat_t, lp["mix_t"])
 
     site_energy = L.mlp(params["readout"], s)[:, 0]
-    energy = segment_sum(site_energy, mol_id.long(), n_mols)
+    energy = segment_sum(site_energy, mol_id, n_mols)
     return energy, s

@@ -680,10 +680,10 @@ def test_cuda_reduced_trainer_matches_cpu(arch):
                                rtol=LOSS_RTOL)
 
 
-#: the GNN and MACE card-against-CPU bar: ``index_add_`` on the card sums
-#: float32 by atomics, in no fixed order (and cuBLAS reduces in another
-#: order than the CPU), so the card is held to the CPU, and to itself, within
-#: 1e-4 relative, not bit for bit
+#: the GNN and MACE card-against-CPU bar: the segment sums are the CPU's bit
+#: for bit (the segment_sum kernel adds in the CPU's order), but cuBLAS
+#: reduces in another order than the CPU, so the card is held to the CPU
+#: within 1e-4 relative; a second card run must give the same bits
 GNN_CARD_RTOL = 1e-4
 #: MeshGraphNet's and MACE's launcher runs after step 5, where a ReLU input
 #: within rounding of zero, or MACE's overshooting steps, part two float32
@@ -734,16 +734,17 @@ def _gnn_forwards(dev):
 
 @pytest.mark.cuda
 def test_cuda_gnn_and_mace_forwards_match_cpu():
-    """Each GNN forward and MACE's energies on the card against the CPU and
-    against a second card run, within ``GNN_CARD_RTOL``; MACE's energy of
-    rotated positions equal within 1e-4, as on the CPU."""
+    """Each GNN forward and MACE's energies on the card against the CPU
+    within ``GNN_CARD_RTOL``, and a second card run bit-equal; MACE's energy
+    of rotated positions equal within 1e-4, as on the CPU."""
     dev = _cuda_or_skip()
     card, again, cpu = _gnn_forwards(dev), _gnn_forwards(dev), _gnn_forwards(torch.device("cpu"))
     for name, want in cpu.items():
-        for got in (card[name], again[name]):
-            assert torch.isfinite(got).all(), name
-            scale = float(want.abs().max())
-            torch.testing.assert_close(got, want, rtol=GNN_CARD_RTOL, atol=GNN_CARD_RTOL * scale, msg=name)
+        got = card[name]
+        assert torch.isfinite(got).all(), name
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=GNN_CARD_RTOL, atol=GNN_CARD_RTOL * scale, msg=name)
+        assert torch.equal(got.view(torch.int32), again[name].view(torch.int32)), name
     torch.testing.assert_close(card["mace_rotated"], card["mace"], rtol=1e-4, atol=1e-5)
 
 
@@ -762,3 +763,38 @@ def test_cuda_gnn_launcher_trainer_matches_cpu(arch, exact):
     got, want = [m["loss"] for m in card.metrics_log], [m["loss"] for m in cpu.metrics_log]
     np.testing.assert_allclose(got[:exact], want[:exact], rtol=GNN_CARD_RTOL)
     np.testing.assert_allclose(got, want, rtol=GNN_DRIFT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,f", [(0, 5, 3), (1, 1, 1), (5_000, 700, 1), (20_000, 3_000, 4), (9_000, 64, 37),
+                                   (3_000, 900, 130), (40_000, 40, 16), (60_000, 6, 4), (30_000, 4, 600)])
+def test_cuda_segment_sum_equals_the_cpu_bit_for_bit(e, n, f):
+    """``segment_sum`` on the card against its plain version on the CPU,
+    bit for bit (unsorted ids with repeats, empty segments, F below, at and
+    above a warp), two launches bit-equal, one counted launch each; the
+    gather's backward on the card against the plain version's on the CPU
+    (``index_add_`` of the gradient, in edge order), bit for bit; float64
+    refused."""
+    from repro_torch.kernels.segment_sum import KERNEL, gather, segment_sum, segment_sum_ref
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(e + n + f)
+    data = (rng.standard_normal((e, f)) * np.exp(3 * rng.standard_normal((e, 1)))).astype(np.float32)
+    ids = rng.integers(0, max(n // 2, 1), size=e).astype(np.int32)
+    d_card, i_card = torch.as_tensor(data, device=dev), torch.as_tensor(ids, device=dev)
+    before = KERNEL.launches
+    got = segment_sum(d_card, i_card, n)
+    again = segment_sum(d_card, i_card, n)
+    assert KERNEL.launches == before + 2
+    want = segment_sum_ref(torch.as_tensor(data), torch.as_tensor(ids).long(), n)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32))
+    xc = x.to(dev).requires_grad_()
+    xh = x.clone().requires_grad_()
+    (g_card,) = torch.autograd.grad(gather(xc, i_card), xc, d_card)
+    (g_cpu,) = torch.autograd.grad(gather(xh, torch.as_tensor(ids)), xh, torch.as_tensor(data))
+    assert torch.equal(g_card.cpu().view(torch.int32), g_cpu.view(torch.int32))
+    assert torch.equal(g_cpu.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(TypeError):
+        segment_sum(d_card.double(), i_card, n)
