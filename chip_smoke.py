@@ -27,7 +27,8 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    SDPA's; ``segment_sum`` at the halo products' shapes (the distributed
    GCN's on GIS, F = 32; the Twitter mesh DiDiC's, F = 4) equal to its
    plain version on the CPU bit for bit, two launches bit-equal, timed
-   beside ``index_add_``;
+   beside ``index_add_`` (its device time a call by ``torch.profiler``), and
+   on Twitter's hub alone beside the hub's chain floor;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
@@ -566,10 +567,29 @@ def _bits_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def _device_ms_per_call(call, kernel: str, calls: int = B2B):
+    """Device milliseconds a call of ``call`` spends in the CUDA kernels
+    whose name holds ``kernel``, by ``torch.profiler`` over ``calls`` calls
+    back to back; None when the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return total / 1e3 / calls if total > 0 else None
+
+
 def segment_sum_case(data, ids, n, what, dev):
     """``segment_sum`` on ``data [E, F]`` (on the card) over ``ids``: equal
     to its plain version run on the CPU bit for bit, two launches bit-equal;
-    timed single and back to back beside the plain version on the card and
+    timed single and back to back, its device time a call by
+    ``torch.profiler`` beside them, the plain version on the card and
     ``index_add_`` (the library call: the same function, by atomics), the
     grouping's one-off build timed apart. Returns the record's numbers."""
     from repro_torch.kernels.segment_sum import segment_order_ref, segment_sum, segment_sum_ref
@@ -585,27 +605,70 @@ def segment_sum_case(data, ids, n, what, dev):
     ids64 = ids.long()
     ms = time_cuda(lambda: segment_sum(data, ids, n))[0]
     b2b_ms = time_cuda(lambda: segment_sum(data, ids, n), inner=B2B)[0]
+    device_ms = _device_ms_per_call(lambda: segment_sum(data, ids, n), "segment_sum")
     plain_ms = time_cuda(lambda: segment_sum_ref(data, ids64, n), reps=5)[0]
     library_ms = time_cuda(lambda: torch.zeros((n, f), device=dev).index_add_(0, ids, data))[0]
     library_b2b_ms = time_cuda(lambda: torch.zeros((n, f), device=dev).index_add_(0, ids, data), inner=B2B)[0]
     n_bytes = e * f * 4 + e * 8 + (n + 1) * 8 + n * f * 4   # data, perm, offsets read once; out written once
     b_ms, b_by = bound_ms(n_bytes, float(e * f))
+    device = "not seen by the profiler" if device_ms is None else f"{device_ms:.4f} ms"
     say(f"segment_sum {what} [{e:,}x{f}] into {n:,} rows: kernel {ms:.4f} ms, {b2b_ms:.4f} b2b "
-        f"({100 * b_ms / b2b_ms:.1f} % of the bound); plain (index_add_ into zeros, by atomics) {plain_ms:.4f} ms; "
-        f"index_add_ {library_ms:.4f} ms, {library_b2b_ms:.4f} b2b; bound {b_ms:.4f} ms ({b_by}); the "
-        f"grouping's build (stable sort, offsets) {order_ms:.4f} ms")
+        f"({100 * b_ms / b2b_ms:.1f} % of the bound), device time a call (torch.profiler) {device}; plain "
+        f"(index_add_ into zeros, by atomics) {plain_ms:.4f} ms; index_add_ {library_ms:.4f} ms, "
+        f"{library_b2b_ms:.4f} b2b; bound {b_ms:.4f} ms ({b_by}); the grouping's build (stable sort, "
+        f"offsets, long segments sorted) {order_ms:.4f} ms")
     return {"max_abs_err": float((got.cpu() - want).abs().max()), "ms": ms, "b2b_ms": b2b_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "library_b2b_ms": library_b2b_ms, "order_ms": order_ms, "shape": [e, f, n]}
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "library_b2b_ms": library_b2b_ms, "order_ms": order_ms, "shape": [e, f, n]}
+
+
+def _smi_clocks():
+    """The SM clock now and its maximum, MHz, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    now, top = (float(x) for x in out.split(","))
+    return now, top
+
+
+def segment_sum_hub(data, ids, n, whole, dev):
+    """Does the hub set the pace? ``segment_sum`` on the longest segment's
+    rows alone (in edge order, one segment), bit-equal to the plain version
+    on the CPU, timed as the whole product is, beside the whole product's
+    time, its bytes bound and the hub's chain floor: its length times the
+    cycles of one dependent add (measured on the card by the kernel's probe)
+    over the top SM clock that ``nvidia-smi`` reports."""
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+    from repro_torch.kernels.segment_sum.ops import add_cycles
+
+    counts = torch.bincount(ids.reshape(-1).long(), minlength=n)
+    hub = int(torch.argmax(counts))
+    rows = data[ids.reshape(-1) == hub]
+    zeros = torch.zeros(rows.shape[0], dtype=ids.dtype, device=dev)
+    got = segment_sum(rows, zeros, 1)
+    check(_bits_equal(got, segment_sum_ref(rows.cpu(), zeros.cpu().long(), 1)),
+          f"segment_sum on the hub alone ({rows.shape[0]:,} edges): the card == the plain version on the CPU")
+    ms = time_cuda(lambda: segment_sum(rows, zeros, 1))[0]
+    b2b_ms = time_cuda(lambda: segment_sum(rows, zeros, 1), inner=B2B)[0]
+    clock_now, clock_top = _smi_clocks()
+    cycles, ns = add_cycles(dev)
+    floor_ms = rows.shape[0] * cycles / (clock_top * 1e6) * 1e3
+    say(f"segment_sum hub alone (segment {hub}, {rows.shape[0]:,} edges x {rows.shape[1]}): {ms:.4f} ms, "
+        f"{b2b_ms:.4f} b2b, against the whole product's {whole['b2b_ms']:.4f} b2b (bytes bound "
+        f"{whole['bound_ms']:.4f} ms); one dependent add {cycles:.3f} cycles ({ns:.4f} ns, the probe's clock "
+        f"{cycles / ns * 1e3:.0f} MHz); SM clock {clock_now:.0f} MHz now, {clock_top:.0f} MHz top; chain floor "
+        f"{floor_ms:.4f} ms ({rows.shape[0]:,} x {cycles:.3f} cycles at {clock_top:.0f} MHz)")
+    return {"segment": hub, "edges": int(rows.shape[0]), "ms": ms, "b2b_ms": b2b_ms, "add_cycles": cycles,
+            "add_ns": ns, "sm_clock_mhz": clock_now, "sm_clock_max_mhz": clock_top, "chain_floor_ms": floor_ms}
 
 
 def phase1_segment_sum(dev, graphs, records):
     """``segment_sum`` at the halo products' shapes: the distributed GCN's
     on GIS (phase 13 (c): one shard, every undirected edge, F = 32) and the
     Twitter mesh DiDiC's (phases 12 (d) and 18 (b): F = k = 4), the edges
-    as the graph lists them and random features (seed 5); the sampled
-    GraphSAGE block is checked in phase 11. Held bit for bit to the plain
-    version on the CPU. The GIS case is the record's timed shape."""
+    as the graph lists them and random features (seed 5); Twitter's hub
+    also alone; the sampled GraphSAGE block is checked in phase 11. Held
+    bit for bit to the plain version on the CPU. The GIS case is the
+    record's timed shape."""
     rng = np.random.default_rng(5)
     out = {}
     for name, f in (("twitter", 4), ("gis", 32)):
@@ -616,6 +679,8 @@ def phase1_segment_sum(dev, graphs, records):
         ids = torch.as_tensor(r, device=dev)
         what = "the GIS halo product (distributed GCN)" if name == "gis" else "the Twitter mesh DiDiC's product"
         out[name] = segment_sum_case(data, ids, g.n_nodes, what, dev)
+        if name == "twitter":
+            out[name]["hub"] = segment_sum_hub(data, ids, g.n_nodes, out[name], dev)
     records["segment_sum"] = {
         "name": "segment_sum", "route": "cuda", "source": "src/repro_torch/csrc/segment_sum.cu",
         "replaces": "none: jax.ops.segment_sum (XLA scatter-add), src/repro/distributed/halo.py:181 and "

@@ -5,6 +5,7 @@ checkout, in turns, on one card.
     python3 kernel_ab.py --other DIR --phase frontier_gather
     python3 kernel_ab.py --other DIR --phase embedding_bag
     python3 kernel_ab.py --other DIR --phase flash_attention_bwd
+    python3 kernel_ab.py --other DIR --phase segment_sum
 
 ``DIR`` is the root of another checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
@@ -12,10 +13,10 @@ Every turn (other, this, this, other) is a fresh process in one checkout:
 it builds that checkout's kernels into its own ``build/`` and times that
 checkout's kernel.
 
-* ``--phase frontier_gather``, ``--phase embedding_bag`` and ``--phase
-  flash_attention_bwd`` are run by this script's own code in each checkout,
-  so they need nothing of the other checkout but its wrapper, called by its
-  signature.
+* ``--phase frontier_gather``, ``--phase embedding_bag``, ``--phase
+  flash_attention_bwd`` and ``--phase segment_sum`` are run by this
+  script's own code in each checkout, so they need nothing of the other
+  checkout but its wrapper, called by its signature.
   ``frontier_gather``: the GIS whole-graph layout at ``scale=1.0``
   (786,432 rows, C = 128, min mode, values drawn from seed 1 as in
   ``chip_smoke.py``), called without a row schedule and, where the
@@ -28,6 +29,17 @@ checkout's kernel.
   on its output and log-sum-exp; SDPA's backward alone on the same inputs
   (``autograd.grad`` on a retained graph) is timed beside it as
   ``sdpa_backward``.
+  ``segment_sum``: ``chip_smoke.py`` phase 1's products, Twitter's
+  ``[1,687,060x4]`` and GIS's ``[4,239,526x32]`` (both at ``scale=1.0``,
+  features from seed 5), and phase 11's sampled GraphSAGE block's gather
+  backward ``[10,240x128]`` (reddit_like, ``NeighborSampler((15, 10))``,
+  its first 1,024-node batch, gradient from seed 6), each held bit for bit
+  to the plain version on the CPU; beside ``ms`` and ``b2b_ms`` the device
+  time a call (``device_ms``, ``torch.profiler`` over 10 calls) and
+  ``index_add_``'s times (``library_ms``, ``library_b2b_ms``). With
+  ``--long-segment 64,128,...`` the three are also timed with the
+  checkout's ``ops.LONG_SEGMENT`` set to each value (records
+  ``segment_sum_twitter_long_64``, ...), each held bit for bit to the plain version on the CPU.
   Each call is held to the plain version (min mode bit-exact, the bag
   within 1e-6, the backward within 3e-2 of ``attention_bwd_lse_ref``) and
   timed as ``chip_smoke.py`` times kernels: one call between two CUDA
@@ -53,7 +65,7 @@ import sys
 
 THIS = os.path.dirname(os.path.abspath(__file__))
 MARK = "KERNEL_AB "
-TIMES = ("ms", "b2b_ms", "plain_ms", "library_ms")
+TIMES = ("ms", "b2b_ms", "device_ms", "plain_ms", "library_ms", "library_b2b_ms", "shape")
 TURN = f"""
 import json, statistics, sys, torch
 sys.path.insert(0, ".")
@@ -144,9 +156,70 @@ def flash_attention_bwd(records):
     records["sdpa_backward"] = timed(lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None], retain_graph=True))
 
 
+def device_ms(fn, kernel, calls=10):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return total / 1e3 / calls if total > 0 else None
+
+
+def segment_sum(records):
+    import numpy as np
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.graphs import datasets
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+
+    cases = {{}}
+    rng = np.random.default_rng(5)
+    for name, f in (("twitter", 4), ("gis", 32)):
+        g = datasets.load(name, scale=1.0, seed=0)
+        s, r, w = g.undirected
+        x = torch.as_tensor(rng.standard_normal((g.n_nodes, f)).astype(np.float32), device=dev)
+        data = torch.as_tensor(w, dtype=torch.float32, device=dev)[:, None] * x[torch.as_tensor(s, device=dev).long()]
+        cases[name] = (data, torch.as_tensor(r, device=dev), g.n_nodes)
+    shape = GNN_SHAPES["minibatch_lg"]
+    ns = NeighborSampler(datasets.load("reddit_like", scale=1.0), shape["fanout"], seed=0)
+    outer, inner = ns.sample_batch(next(ns.batches(shape["batch_nodes"], 5, seed=1)))
+    nbrs = torch.as_tensor(inner.neighbors, device=dev).reshape(-1)
+    grad = torch.as_tensor(np.random.default_rng(6).standard_normal((nbrs.numel(), 128)).astype(np.float32),
+                           device=dev)
+    cases["sage_block"] = (grad, nbrs, int(outer.neighbors.shape[0]))
+    wants = {{name: segment_sum_ref(data.cpu(), ids.cpu().long(), n) for name, (data, ids, n) in cases.items()}}
+    for name, (data, ids, n) in cases.items():
+        fn = lambda: segment_sum(data, ids, n)
+        if not torch.equal(fn().cpu().view(torch.int32), wants[name].view(torch.int32)):
+            sys.exit(f"kernel_ab: segment_sum {{name}} differs from the plain version on the CPU")
+        lib = lambda: torch.zeros((n, data.shape[1]), device=dev).index_add_(0, ids, data)
+        records["segment_sum_" + name] = {{
+            **timed(fn), "device_ms": device_ms(fn, "segment_sum"), "library_ms": time_cuda(lib),
+            "library_b2b_ms": time_cuda(lib, inner=10), "shape": [*data.shape, n]}}
+    from repro_torch.kernels.segment_sum import ops
+    default = ops.LONG_SEGMENT
+    for at in THRESHOLDS:
+        ops.LONG_SEGMENT = at
+        for name in cases:
+            data, ids, n = cases[name]
+            ids = ids.clone()  # a fresh grouping at this threshold
+            fn = lambda: segment_sum(data, ids, n)
+            if not torch.equal(fn().cpu().view(torch.int32), wants[name].view(torch.int32)):
+                sys.exit(f"kernel_ab: segment_sum {{name}} at LONG_SEGMENT {{at}} differs from the plain version")
+            records[f"segment_sum_{{name}}_long_{{at}}"] = {{**timed(fn), "device_ms": device_ms(fn, "segment_sum")}}
+    ops.LONG_SEGMENT = default
+
+
 records = {{}}
 phase = sys.argv[1]
-if phase in ("frontier_gather", "embedding_bag", "flash_attention_bwd"):
+THRESHOLDS = [int(x) for x in sys.argv[2].split(",") if x]
+if phase in ("frontier_gather", "embedding_bag", "flash_attention_bwd", "segment_sum"):
     globals()[phase](records)
 else:
     import chip_smoke
@@ -155,8 +228,9 @@ print({MARK!r} + json.dumps({{n: {{k: r[k] for k in {TIMES!r} if k in r}} for n,
 """
 
 
-def turn(root: str, phase: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", TURN, phase], cwd=root, capture_output=True, text=True)
+def turn(root: str, phase: str, thresholds: str = "") -> dict:
+    proc = subprocess.run([sys.executable, "-c", TURN, phase, thresholds], cwd=root, capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
         raise SystemExit(f"kernel_ab: {phase} failed in {root} (exit code {proc.returncode})")
@@ -168,10 +242,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--phase", default="phase1_bell",
-                    help="frontier_gather, embedding_bag, flash_attention_bwd, or a chip_smoke.py phase function")
+                    help="frontier_gather, embedding_bag, flash_attention_bwd, segment_sum, or a chip_smoke.py "
+                         "phase function")
+    ap.add_argument("--long-segment", default="",
+                    help="segment_sum only: also time the three shapes with LONG_SEGMENT set to each of these "
+                         "comma-separated values (a checkout whose grouping has the threshold)")
     args = ap.parse_args(argv)
     roots = {"other": os.path.abspath(args.other), "this": THIS}
-    turns = [{"side": side, "records": turn(roots[side], args.phase)}
+    turns = [{"side": side, "records": turn(roots[side], args.phase, args.long_segment)}
              for side in ("other", "this", "this", "other")]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

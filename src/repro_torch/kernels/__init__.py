@@ -69,6 +69,7 @@ class CudaKernel:
         self.route_launches: Dict[str, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
+        self._fn = None  # the bound C entry point, once loaded
         KERNELS[name] = self
 
     @property
@@ -119,15 +120,16 @@ class CudaKernel:
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._lib = lib
+            self._lib, self._fn = lib, fn
         return self._lib
 
     def call(self, *args) -> None:
         """Call the C entry point; raise on a CUDA error. Counts nothing."""
-        lib = self.lib
-        rc = getattr(lib, f"{self.name}_launch")(*args)
+        if self._fn is None:
+            self.lib  # builds, loads and binds the entry point
+        rc = self._fn(*args)
         if rc != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
+            msg = getattr(self.lib, f"{self.name}_error_string")(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
 
     def launch(self, *args, route: Optional[str] = None) -> None:

@@ -43,22 +43,32 @@ from repro_torch.kernels.segment_sum.ref import segment_order_ref, segment_sum_r
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 KERNEL = CudaKernel("segment_sum", "segment_sum.cu", [_P, _P, _P, _P, _I64, _I64, _P, _I64, _I64, _P])
-#: segments of more edges than this go to the kernel's block-per-segment path
-LONG_SEGMENT = 256
+#: segments of more edges than this go to the kernel's long role (a block
+#: for every 16 columns); shorter ones to its short role (a lane group
+#: each). 64 by measurement on an H100 (``kernel_ab.py --long-segment``):
+#: the sampled GraphSAGE block's device time is the same at 32 and doubles
+#: at 128, where the short role walks segments of up to that many edges 8
+#: at a time; Twitter's and GIS's halo products do not move
+LONG_SEGMENT = 64
 
 
 def segment_order(ids: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(perm, offsets, long_ids)`` of ``ids`` (any shape, flattened) over
     ``n`` segments: :func:`.ref.segment_order_ref`'s grouping and the
-    segments of more than :data:`LONG_SEGMENT` edges (int64; finding them
-    waits for the device once). Kept on ``ids`` and built again only when
-    ``ids`` changed in place or ``n`` differs."""
-    key = (int(n), ids._version)
+    segments of more than :data:`LONG_SEGMENT` edges, longest first, ties
+    by ascending id (int64; the kernel gives them its first blocks, so the
+    longest chain starts first; finding them waits for the device once).
+    Kept on ``ids`` and built again only when ``ids`` changed in place, or
+    ``n`` or :data:`LONG_SEGMENT` differs."""
+    key = (int(n), ids._version, LONG_SEGMENT)
     memo = ids.__dict__.get("_segment_order")
     if memo is not None and memo[0] == key:
         return memo[1]
     perm, offsets = segment_order_ref(ids, n)
-    order = (perm, offsets, torch.nonzero(offsets[1:] - offsets[:-1] > LONG_SEGMENT).reshape(-1))
+    lengths = offsets[1:] - offsets[:-1]
+    long_ids = torch.nonzero(lengths > LONG_SEGMENT).reshape(-1)
+    long_ids = long_ids[torch.sort(lengths[long_ids], descending=True, stable=True).indices]
+    order = (perm, offsets, long_ids)
     ids._segment_order = (key, order)
     return order
 
@@ -74,7 +84,10 @@ def _sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _kernel_call(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """One launch of ``csrc/segment_sum.cu`` on checked CUDA tensors."""
+    """One launch of ``csrc/segment_sum.cu`` on checked CUDA tensors. The
+    stream is read raw (``torch.cuda.current_stream`` builds a ``Stream``
+    object a call): at a sampled block's size the host's work a call is
+    longer than the kernel."""
     e, rest = data.shape[0], tuple(data.shape[1:])
     if ids.numel() != e:
         raise ValueError(f"ids has {ids.numel()} entries, data {e} rows")
@@ -83,10 +96,29 @@ def _kernel_call(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     flat = data.reshape(e, math.prod(rest)).contiguous()
     check_cuda_tensor(flat, "data", (torch.float32,), 2, data.device)
     perm, offsets, long_ids = segment_order(ids, n)
-    out = torch.empty((n, flat.shape[1]), dtype=torch.float32, device=data.device)
+    f = flat.shape[1]
+    out = torch.empty((n, f), dtype=torch.float32, device=data.device)
     KERNEL.launch(flat.data_ptr(), perm.data_ptr(), offsets.data_ptr(), long_ids.data_ptr(), long_ids.numel(),
-                  LONG_SEGMENT, out.data_ptr(), n, flat.shape[1], torch.cuda.current_stream(data.device).cuda_stream)
+                  LONG_SEGMENT, out.data_ptr(), n, f, torch._C._cuda_getCurrentRawStream(data.device.index))
     return out.reshape((n,) + rest)
+
+
+def add_cycles(device) -> Tuple[float, float]:
+    """``(cycles, ns)`` of one dependent ``__fadd_rn`` on the card ``device``,
+    by the probe in ``csrc/segment_sum.cu`` (one thread, 2^16 adds in a
+    chain between two clock reads; not counted as a launch): the unit of a
+    hub's chain floor."""
+    adds = 1 << 16
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    probe = KERNEL.lib.segment_sum_add_probe
+    probe.argtypes, probe.restype = [_P, _I64, _P], ctypes.c_int
+    rc = probe(out.data_ptr(), adds, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_sum_add_probe: CUDA error {rc}")
+    cycles, ns, total = out.tolist()
+    if total != adds + 1:
+        raise RuntimeError(f"segment_sum_add_probe summed {total}, not {adds + 1}")
+    return cycles / adds, ns / adds
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -123,9 +155,12 @@ class _Gather(torch.autograd.Function):
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """``out[s] = Σ data[e]`` over ``ids[e] == s`` → ``[n, ...]``
-    (``jax.ops.segment_sum``); differentiable in ``data``. The kernel does
-    not check that ids lie in ``[0, n)``."""
-    return _SegmentSum.apply(data, ids, int(n))
+    (``jax.ops.segment_sum``); differentiable in ``data`` (a call that
+    needs no gradient skips the ``autograd.Function``). The kernel does not
+    check that ids lie in ``[0, n)``."""
+    if data.requires_grad and torch.is_grad_enabled():
+        return _SegmentSum.apply(data, ids, int(n))
+    return _sum(data, ids, int(n))
 
 
 def gather(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -798,3 +798,81 @@ def test_cuda_segment_sum_equals_the_cpu_bit_for_bit(e, n, f):
     assert torch.equal(g_cpu.view(torch.int32), want.view(torch.int32))
     with pytest.raises(TypeError):
         segment_sum(d_card.double(), i_card, n)
+
+
+def _stage_rows(f):
+    """Rows in one stage of ``csrc/segment_sum.cu``'s long-role ring for
+    row width ``f``: a slice of at most 16 columns, each kept as a power of
+    two of rows (64 to 256) and 4 floats of padding within 1,152 floats."""
+    cw, r = min(f, 16), 256
+    while r > 64 and r > 1152 // cw - 4:
+        r //= 2
+    return r
+
+
+def _segment_sum_card_and_cpu(dev, data, ids, n):
+    """The card's sum, twice (one counted launch each, bit-equal), and the
+    plain version's on the CPU."""
+    from repro_torch.kernels.segment_sum import KERNEL, segment_sum, segment_sum_ref
+
+    d_card, i_card = torch.as_tensor(data, device=dev), torch.as_tensor(ids, device=dev)
+    before = KERNEL.launches
+    got = segment_sum(d_card, i_card, n)
+    again = segment_sum(d_card, i_card, n)
+    assert KERNEL.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got.cpu(), segment_sum_ref(torch.as_tensor(data), torch.as_tensor(ids).long(), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 4, 32, 33, 128])
+def test_cuda_segment_sum_hubs_equal_the_cpu_bit_for_bit(f):
+    """A 47,691-edge hub (Twitter's largest), 60 hubs of mixed lengths,
+    segments at ``LONG_SEGMENT`` and one edge more, at one and at five ring
+    stages (the ring's length) and one edge either side, among 20,000 short
+    segments, in shuffled edge order: the card equals the plain version on
+    the CPU bit for bit, two launches bit-equal; the gather's backward over
+    the same ids too."""
+    dev = _cuda_or_skip()
+    from repro_torch.kernels.segment_sum import gather
+    from repro_torch.kernels.segment_sum.ops import LONG_SEGMENT
+
+    rng = np.random.default_rng(f)
+    at, r = LONG_SEGMENT, _stage_rows(f)
+    hubs = [47_691, at, at + 1, r - 1, r, r + 1, 5 * r - 1, 5 * r, 5 * r + 1]
+    hubs += rng.integers(at + 1, 4_000, size=60).tolist()
+    lengths = np.concatenate([hubs, rng.integers(0, 12, size=20_000)])
+    ids = np.repeat(np.arange(lengths.size), lengths)
+    ids = ids[rng.permutation(ids.size)].astype(np.int32)
+    n = lengths.size + 3                                          # empty segments at the end
+    data = (rng.standard_normal((ids.size, f)) * np.exp(3 * rng.standard_normal((ids.size, 1)))).astype(np.float32)
+    got, want = _segment_sum_card_and_cpu(dev, data, ids, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32))
+    xc, xh = x.to(dev).requires_grad_(), x.clone().requires_grad_()
+    (g_card,) = torch.autograd.grad(gather(xc, torch.as_tensor(ids, device=dev)), xc, torch.as_tensor(data, device=dev))
+    (g_cpu,) = torch.autograd.grad(gather(xh, torch.as_tensor(ids)), xh, torch.as_tensor(data))
+    assert torch.equal(g_card.cpu().view(torch.int32), g_cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 4, 33, 300])
+def test_cuda_segment_sum_every_edge_in_one_segment(f):
+    """100,000 edges, all in segment 1 of 3 (300 columns: 19 long blocks
+    over the hub): the card equals the plain version on the CPU bit for
+    bit."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(100 + f)
+    data = (rng.standard_normal((100_000, f)) * np.exp(3 * rng.standard_normal((100_000, 1)))).astype(np.float32)
+    got, want = _segment_sum_card_and_cpu(dev, data, np.ones(100_000, np.int64), 3)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_add_probe():
+    """The chain floor's unit: one dependent add takes a few cycles."""
+    from repro_torch.kernels.segment_sum.ops import add_cycles
+
+    cycles, ns = add_cycles(_cuda_or_skip())
+    assert 1.0 <= cycles <= 64.0 and ns > 0.0

@@ -138,8 +138,51 @@ def test_segment_order_is_a_stable_argsort_and_bincount_offsets(e, n, f):
     assert np.array_equal(perm.numpy(), np.argsort(ids, kind="stable"))
     counts = np.bincount(ids, minlength=n)
     assert np.array_equal(offsets.numpy(), np.concatenate([[0], np.cumsum(counts)]))
-    assert np.array_equal(long_ids.numpy(), np.flatnonzero(counts > seg_ops.LONG_SEGMENT))
-    assert long_ids.tolist()[-1] == n - 1
+    long = np.flatnonzero(counts > seg_ops.LONG_SEGMENT)
+    assert np.array_equal(long_ids.numpy(), long[np.lexsort((long, -counts[long]))])   # longest first
+    assert long_ids.tolist()[0] == n - 1
+
+
+def test_long_ids_come_longest_first_ties_by_id_at_an_exact_threshold():
+    """Segments of exactly ``LONG_SEGMENT`` edges stay short, one more edge
+    makes them long; the long ones come longest first, equal lengths in
+    ascending segment id (the kernel's first blocks take them in order)."""
+    at = seg_ops.LONG_SEGMENT
+    lengths = {0: at, 1: at + 1, 2: 3 * at, 3: at + 1, 5: 2 * at, 6: at - 1, 8: 3 * at, 9: 1}
+    ids = np.concatenate([np.full(k, s) for s, k in lengths.items()])
+    ids = ids[np.random.default_rng(0).permutation(ids.size)]
+    perm, offsets, long_ids = segment_order(torch.as_tensor(ids), 11)
+    assert long_ids.tolist() == [2, 8, 5, 1, 3]
+    assert np.array_equal(perm.numpy(), np.argsort(ids, kind="stable"))
+    assert np.array_equal(np.diff(offsets.numpy()), np.bincount(ids, minlength=11))
+
+
+def test_segment_order_follows_the_threshold(monkeypatch):
+    ids = torch.as_tensor(np.repeat([0, 1, 2], [5, 9, 7]))
+    assert segment_order(ids, 3)[2].numel() == 0
+    monkeypatch.setattr(seg_ops, "LONG_SEGMENT", 6)
+    assert segment_order(ids, 3)[2].tolist() == [1, 2]                 # built again for the new threshold
+
+
+@pytest.mark.parametrize("f", [1, 4, 33])
+def test_plain_version_at_hub_length_is_a_sequential_float32_sum(f):
+    """The contract at a hub's length: a 50,000-edge segment among short
+    ones sums as numpy's sequential float32 ``cumsum`` over its rows in
+    edge order (its last row), and as ``jax.ops.segment_sum``, bit for
+    bit."""
+    rng = np.random.default_rng(50 + f)
+    e, n, hub = 60_000, 400, 7
+    ids = rng.integers(0, n - 1, size=e)
+    ids[ids >= hub] += 1                                     # the other segments, short
+    ids[rng.permutation(e)[:50_000]] = hub
+    data = (rng.standard_normal((e, f)) * np.exp(3 * rng.standard_normal((e, 1)))).astype(np.float32)
+    got = segment_sum(torch.as_tensor(data), torch.as_tensor(ids), n).numpy()
+    rows = data[ids == hub]
+    assert rows.shape[0] == 50_000
+    chain = np.cumsum(rows, axis=0, dtype=np.float32)[-1]
+    jax_sum = np.asarray(jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids), num_segments=n))
+    assert np.array_equal(_bits(got[hub]), _bits(chain))
+    assert np.array_equal(_bits(got), _bits(jax_sum))
 
 
 def test_segment_order_is_kept_on_the_index_tensor():
