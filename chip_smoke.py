@@ -28,13 +28,19 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    GCN's on GIS, F = 32; the Twitter mesh DiDiC's, F = 4) equal to its
    plain version on the CPU bit for bit, two launches bit-equal, timed
    beside ``index_add_`` (its device time a call by ``torch.profiler``), and
-   on Twitter's hub alone beside the hub's chain floor;
+   on Twitter's hub alone beside the hub's chain floor; ``segment_spmm`` at
+   DiDiC's coefficient matrices at ``scale=1.0`` (k = 4) equal to its plain
+   version on the CPU bit for bit, two launches bit-equal, timed beside
+   ``torch.sparse.mm`` on CSR (cuSPARSE), Twitter's hub alone beside its
+   chain floor, k = 2 and 8 on GIS, and the capacity overlay's dead rows;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
    card, exactness of the batched engine against the scalar oracle on
-   the first 64 ops, DiDiC's run-to-run determinism;
-3. DiDiC's ``bell_matmul`` route on GIS at ``scale=0.01``;
+   the first 64 ops, DiDiC's run-to-run determinism, every DiDiC product
+   one ``segment_spmm`` launch;
+3. DiDiC's ``bell_matmul`` route on GIS at ``scale=0.01`` beside its
+   ``segment_spmm`` route;
 4. DIN at its full config (``configs/din.FULL``): scoring 262,144
    requests, the user tower through ``embedding_bag``, one user against
    1,000,000 candidates;
@@ -213,7 +219,9 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
     fixed host-only workload, to read the script's time against.
 
 Each kernel's ``launches`` come from its main-path runs: each replay of
-phase 2 (``frontier_gather``), the kernel-route DiDiC run of phase 3
+phase 2 (``frontier_gather``), its DiDiC runs and every single-device
+DiDiC run inside a counted run after them (``segment_spmm``), the
+kernel-route DiDiC run of phase 3
 (``bell_matmul``), the ``user_vector`` call of phase 4 (``embedding_bag``),
 the granite forward call of phase 5, the four forward calls of phase 9
 and phase 10's trainer runs on the card
@@ -229,8 +237,8 @@ steps, phase 12's halo DiDiC runs, phase 13's GCN run and phase 18's
 Dynamic tables (``segment_sum``);
 phase 8's offline replays, the reference
 the online runs are checked against, are read apart and not counted.
-Phase 16's path reaches no kernel (a BFS replay and DiDiC's segment
-route). The
+Phase 16's launches are not counted (its BFS replays reach no kernel; its
+DiDiC passes go through ``segment_spmm``). The
 launch counts are set to 0 just before each of them and read just after. Each
 kernel's ``ms`` is one call between two CUDA events, its wrapper's host
 work included; its phase line also gives its time a call over 10 calls
@@ -267,7 +275,7 @@ N_OPS = 10_000               # the paper's evaluation-log length (§6.1)
 DIDIC_ITERATIONS = 100       # the paper's initial partitioning (§7.3)
 B2B = 10                     # calls a back-to-back time runs (each kernel's ms is one call)
 KERNEL_ORDER = ("frontier_gather", "bell_matmul", "embedding_bag", "flash_attention", "flash_attention_bwd",
-                "segment_sum")
+                "segment_sum", "segment_spmm")
 
 
 class CheckFailed(RuntimeError):
@@ -689,6 +697,136 @@ def phase1_segment_sum(dev, graphs, records):
     }
 
 
+def _spmm_check(spmm, x, what):
+    """``segment_spmm`` with DiDiC's CSR matrix (a ``SegmentSpmm``'s) on
+    ``x`` on the card: equal to its plain version on the CPU bit for bit,
+    two launches bit-equal. Returns the card's product and the CPU's."""
+    from repro_torch.kernels.segment_spmm import segment_spmm, segment_spmm_ref
+
+    a = spmm.a
+    got = segment_spmm(x, a)
+    want = segment_spmm_ref(x.cpu(), a.col.cpu(), a.scale.cpu(), a.ids.cpu(), a.n)
+    shape = f"[{a.col.numel():,} edges x {x.shape[1]}] into {a.n:,} rows"
+    check(_bits_equal(got, want), f"segment_spmm {what} {shape}: the card == the plain version on the CPU, bit for bit")
+    check(_bits_equal(got, segment_spmm(x, a)), f"segment_spmm {what}: two launches give the same bits")
+    return got, want
+
+
+def segment_spmm_case(spmm, x, what):
+    """``_spmm_check``, then timed single and back to back, its device time
+    a call by ``torch.profiler`` beside them, the plain version on the card,
+    and the library call for the same function: ``torch.sparse.mm`` of the
+    coefficients as a ``torch.sparse_csr_tensor`` (cuSPARSE), held to the
+    plain version within 1e-4 (it sums in its own order). Returns the
+    record's numbers."""
+    from repro_torch.kernels.segment_spmm import segment_spmm, segment_spmm_ref
+
+    a = spmm.a
+    e, f, n = a.col.numel(), x.shape[1], a.n
+    got, want = _spmm_check(spmm, x, what)
+    call = lambda: segment_spmm(x, a)
+    ms = time_cuda(call)[0]
+    b2b_ms = time_cuda(call, inner=B2B)[0]
+    device_ms = _device_ms_per_call(call, "segment_spmm")
+    plain_ms = time_cuda(lambda: segment_spmm_ref(x, a.col, a.scale, a.ids, n), reps=5)[0]
+    lib = torch.sparse_csr_tensor(a.offsets, a.col.long(), a.scale, size=(n, x.shape[0]), check_invariants=True)
+    check(torch.allclose(torch.sparse.mm(lib, x).cpu(), want, rtol=1e-4, atol=1e-4),
+          f"segment_spmm {what}: cuSPARSE's CSR product agrees within 1e-4 (yardstick)")
+    library_ms = time_cuda(lambda: torch.sparse.mm(lib, x))[0]
+    library_b2b_ms = time_cuda(lambda: torch.sparse.mm(lib, x), inner=B2B)[0]
+    # col and scale read once, x once, the offsets once; out written once
+    n_bytes = e * 4 + e * 4 + x.numel() * 4 + (n + 1) * 8 + n * f * 4
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * e * f)
+    device = "not seen by the profiler" if device_ms is None else f"{device_ms:.4f} ms"
+    say(f"segment_spmm {what} [{e:,} edges x {f}] into {n:,} rows: kernel {ms:.4f} ms, {b2b_ms:.4f} b2b "
+        f"({100 * b_ms / b2b_ms:.1f} % of the bound), device time a call (torch.profiler) {device}; plain "
+        f"(products, then index_add_ into zeros) {plain_ms:.4f} ms; torch.sparse.mm on CSR (cuSPARSE) "
+        f"{library_ms:.4f} ms, {library_b2b_ms:.4f} b2b; bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": float((got.cpu() - want).abs().max()), "ms": ms, "b2b_ms": b2b_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "library_b2b_ms": library_b2b_ms, "shape": [e, f, n]}
+
+
+def segment_spmm_hub(spmm, x, whole, dev):
+    """Does the hub set the pace? ``segment_spmm`` on the longest row's
+    edges alone, bit-equal to the plain version on the CPU, timed as the
+    whole product is, beside the whole product's time, its bytes bound and
+    the hub's chain floor (``segment_sum_hub``'s: its length times the
+    cycles of one dependent add, by ``segment_sum``'s probe, over the top
+    SM clock)."""
+    from repro_torch.kernels.segment_spmm import csr_matrix, segment_spmm, segment_spmm_ref
+    from repro_torch.kernels.segment_sum.ops import add_cycles
+
+    offsets = spmm.a.offsets
+    hub = int(torch.argmax(offsets[1:] - offsets[:-1]))
+    b, e = (int(v) for v in offsets[hub:hub + 2])
+    a = csr_matrix(torch.zeros(e - b, dtype=torch.int64, device=dev), spmm.a.col[b:e], spmm.a.scale[b:e], 1)
+    got = segment_spmm(x, a)
+    check(_bits_equal(got, segment_spmm_ref(x.cpu(), a.col.cpu(), a.scale.cpu(), a.ids.cpu(), 1)),
+          f"segment_spmm on the hub alone ({e - b:,} edges): the card == the plain version on the CPU")
+    ms = time_cuda(lambda: segment_spmm(x, a))[0]
+    b2b_ms = time_cuda(lambda: segment_spmm(x, a), inner=B2B)[0]
+    clock_now, clock_top = _smi_clocks()
+    cycles, _ = add_cycles(dev)
+    floor_ms = (e - b) * cycles / (clock_top * 1e6) * 1e3
+    say(f"segment_spmm hub alone (row {hub}, {e - b:,} edges x {x.shape[1]}): {ms:.4f} ms, {b2b_ms:.4f} b2b, "
+        f"against the whole product's {whole['b2b_ms']:.4f} b2b (bytes bound {whole['bound_ms']:.4f} ms); one "
+        f"dependent add {cycles:.3f} cycles; SM clock {clock_now:.0f} MHz now, {clock_top:.0f} MHz top; chain floor "
+        f"{floor_ms:.4f} ms")
+    return {"row": hub, "edges": e - b, "ms": ms, "b2b_ms": b2b_ms, "add_cycles": cycles, "chain_floor_ms": floor_ms}
+
+
+def phase1_segment_spmm(dev, graphs, records):
+    """``segment_spmm`` at DiDiC's coefficient matrices at ``scale=1.0``
+    (k = 4, ``x`` from seed 5), each built as ``make_spmm`` builds it (a
+    ``SegmentSpmm``, its one-off build timed), held bit for bit to the plain
+    version on the CPU and timed; Twitter's hub also alone; k = 2 and 8 on
+    GIS; and the capacity overlay's product on Twitter (``n_cap + 1`` rows
+    of a store at the default headroom, on a copy of the graph): the dead
+    rows exactly 0 though ``x`` is not, the live rows the k = 4 product's
+    bits. The GIS case is the record's timed shape."""
+    from repro_torch.core.didic import SegmentSpmm, _edge_coefficients, _overlay_tables
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for name in ("filesystem", "gis", "twitter"):
+        g = graphs[name]
+        s, r, ce, _ = _edge_coefficients(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spmm = SegmentSpmm(s, r, ce, g.n_nodes, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        say(f"segment_spmm {name}: the CSR matrix's one-off build (SegmentSpmm: offsets, long rows sorted, "
+            f"{spmm.a.long_ids.numel():,} of them) {build_s:.3f} s")
+        x = torch.as_tensor(rng.standard_normal((g.n_nodes, 4)).astype(np.float32), device=dev)
+        out[name] = segment_spmm_case(spmm, x, f"DiDiC's {name} product")
+        out[name]["build_s"] = build_s
+        if name == "twitter":
+            out[name]["hub"] = segment_spmm_hub(spmm, x, out[name], dev)
+            bare = _bare(g)
+            bare.ensure_store()
+            overlay, _ = _overlay_tables(bare, dev)
+            xo = torch.as_tensor(rng.standard_normal((overlay.a.n, 4)).astype(np.float32), device=dev)
+            got, _ = _spmm_check(overlay, xo, f"Twitter's capacity overlay ({overlay.a.n - g.n_nodes:,} dead rows)")
+            check(not got[g.n_nodes:].any(), "segment_spmm on the overlay: every dead row exactly 0")
+            check(_bits_equal(got[:g.n_nodes], spmm(xo[:g.n_nodes])),
+                  "segment_spmm on the overlay: the live rows equal the product without the store, bit for bit")
+            del bare, overlay, xo
+        if name == "gis":
+            for k in (2, 8):
+                xk = torch.as_tensor(rng.standard_normal((g.n_nodes, k)).astype(np.float32), device=dev)
+                _spmm_check(spmm, xk, f"DiDiC's gis product, k = {k}")
+        del spmm, x
+    records["segment_spmm"] = {
+        "name": "segment_spmm", "route": "cuda", "source": "src/repro_torch/csrc/segment_spmm.cu",
+        "replaces": "none: carries bell_matmul's A_c @ W (src/repro/kernels/bsr_spmm/kernel.py:52) at the "
+                    "paper's scale, where the JAX package sums ce * take(x, r) by jax.ops.segment_sum "
+                    "(src/repro/core/didic.py:127)",
+        **out["gis"], "filesystem": out["filesystem"], "twitter": out["twitter"],
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 2
 # ---------------------------------------------------------------------------
@@ -711,10 +849,20 @@ def _add_counts(main_launches, counts) -> None:
         main_launches[kname] = main_launches.get(kname, 0) + n
 
 
+def _didic_products(config, iterations: int) -> int:
+    """``A_c @ X`` products of ``iterations`` DiDiC iterations from a cold
+    start: ψ(ρ + 1) diffusion products an iteration (paper §4.1.3) and the
+    smoothing schedule's steps, min(2^(i // smooth_double_every),
+    smooth_cap) in iteration i."""
+    diffusion = config.primary_steps * (config.secondary_steps + 1)
+    smoothing = sum(min(1 << (i // max(config.smooth_double_every, 1)), config.smooth_cap) for i in range(iterations))
+    return iterations * diffusion + smoothing
+
+
 def phase2_dataset(name, graph, dev, main_launches, held):
     """Drive the static experiment on one dataset. The launch counts of
-    each main-path replay (counts set to 0 just before it, read just after)
-    are added into ``main_launches``; the checks that follow launch kernels
+    the DiDiC run and of each main-path replay (counts set to 0 just before
+    it, read just after) are added into ``main_launches``; the checks that follow launch kernels
     too, but outside those windows. Returns the DiDiC map, its carried
     state and the 100 iterations' seconds, where phase 6 starts; keeps the
     DiDiC map's replay in ``held[name]`` for phase 12."""
@@ -734,13 +882,20 @@ def phase2_dataset(name, graph, dev, main_launches, held):
     if hard is not None:
         parts["hardcoded"] = hard
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     svc.partition_didic(seed=0)
     torch.cuda.synchronize()
     didic_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    _add_counts(main_launches, counts)
     parts["didic"] = svc.parts.copy()
-    say(f"phase 2: {name} DiDiC {DIDIC_ITERATIONS} iterations (segment route): {didic_s:.2f} s, "
+    say(f"phase 2: {name} DiDiC {DIDIC_ITERATIONS} iterations (segment_spmm): {didic_s:.2f} s, "
         f"{didic_s / DIDIC_ITERATIONS * 1e3:.2f} ms/iteration")
+    products = _didic_products(config, DIDIC_ITERATIONS)
+    check(counts["segment_spmm"] == products,
+          f"{name}: each of DiDiC's {products:,} products one segment_spmm launch ({counts['segment_spmm']:,})")
+    check(counts["bell_matmul"] == 0, f"{name}: DiDiC's segment route launched no bell_matmul")
 
     tg = {}
     for pname, p in parts.items():
@@ -783,7 +938,7 @@ def phase2_dataset(name, graph, dev, main_launches, held):
     p1, s1 = didic_partition(graph, five, seed=1, device=dev)
     p2, s2 = didic_partition(graph, five, seed=1, device=dev)
     check(np.array_equal(p1, p2) and torch.equal(s1.w, s2.w),
-          f"{name}: segment-route DiDiC, 5 iterations twice: bit-equal parts and w")
+          f"{name}: DiDiC through segment_spmm, 5 iterations twice: bit-equal parts and w")
     return parts["didic"], svc.runtime.state, didic_s
 
 
@@ -791,10 +946,11 @@ def phase2_dataset(name, graph, dev, main_launches, held):
 # phase 3
 # ---------------------------------------------------------------------------
 def phase3(dev, main_launches):
-    """DiDiC's kernel route against its segment route. The kernel route's
-    run is the main path here: its launch counts (set to 0 just before it,
-    read just after) are added into ``main_launches``. Returns the graph
-    and the kernel route's map, where phase 6's kernel-route Stress starts."""
+    """DiDiC's kernel route (``bell_matmul``) against its segment route
+    (``segment_spmm``). Both runs are main-path runs: their launch counts
+    (set to 0 just before each, read just after) are added into
+    ``main_launches``. Returns the graph and the kernel route's map, where
+    phase 6's kernel-route Stress starts."""
     from repro_torch import kernels
     from repro_torch.core import metrics
     from repro_torch.core.didic import DidicConfig, didic_partition
@@ -803,26 +959,25 @@ def phase3(dev, main_launches):
     gis = datasets.load("gis", scale=0.01)
     cuts = {}
     for use_kernel in (False, True):
+        config = DidicConfig(k=4, iterations=20, use_kernel=use_kernel, block_size=128)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        p, _ = didic_partition(
-            gis, DidicConfig(k=4, iterations=20, use_kernel=use_kernel, block_size=128),
-            seed=0, device=dev,
-        )
+        p, _ = didic_partition(gis, config, seed=0, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        _add_counts(main_launches, counts)
         route = "kernel" if use_kernel else "segment"
         cuts[route] = metrics.edge_cut_fraction(gis, p)
-        launched = counts["bell_matmul"]
+        bell, spmm = counts["bell_matmul"], counts["segment_spmm"]
         say(f"phase 3: GIS 0.01 DiDiC {route} route, 20 iterations: edge cut {cuts[route]:.4f}, "
-            f"{wall / 20 * 1e3:.2f} ms/iteration, bell_matmul launches {launched}")
+            f"{wall / 20 * 1e3:.2f} ms/iteration, bell_matmul launches {bell}, segment_spmm launches {spmm}")
         if use_kernel:
-            _add_counts(main_launches, counts)
-            check(launched > 0, "DiDiC's kernel route went through bell_matmul")
+            check(bell > 0 and spmm == 0, "DiDiC's kernel route went through bell_matmul and launched no segment_spmm")
         else:
-            check(launched == 0, "DiDiC's segment route launched no bell_matmul")
+            check(spmm == _didic_products(config, 20) and bell == 0,
+                  f"DiDiC's segment route: every product one segment_spmm launch ({spmm}), no bell_matmul")
     ratio = max(cuts.values()) / max(min(cuts.values()), 1e-12)
     check(ratio <= 1.5, f"kernel-route edge cut within 1.5x of the segment route's ({ratio:.3f}x)")
     return gis, p
@@ -4477,6 +4632,7 @@ def main() -> int:
     phase1_flash_groups(dev)
     phase1_flash_backward(dev, records)
     phase1_segment_sum(dev, graphs, records)
+    phase1_segment_spmm(dev, graphs, records)
     say(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {}
@@ -4543,14 +4699,15 @@ def main() -> int:
     say(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
     phase18(held, dev, smi, main_launches, t_start)
     say(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
-    say("main-path launches (the replays of phase 2, the kernel-route DiDiC of phase 3, "
+    say("main-path launches (the replays and DiDiC runs of phase 2, the two DiDiC routes of phase 3, "
         "user_vector in phase 4, the granite forward in phase 5, the replays and maintenance of "
         "phase 6, the replays and tables of phase 7, the uninterrupted, recovered and online runs "
         "of phase 8, the four forwards of phase 9, the training steps of phase 10, the sharded "
         "replays of phase 12, the mesh forward and the mesh online runs of phase 13, the replays and "
         "runs of phase 14, the EP training steps of phase 15, the TP step and the model ranks' "
         "attention of phase 17, the mesh tables of phase 18; segment_sum: the trainer steps of phase 11, "
-        "the halo DiDiC of phase 12, the GCN of phase 13, the Dynamic tables of phase 18): "
+        "the halo DiDiC of phase 12, the GCN of phase 13, the Dynamic tables of phase 18; segment_spmm: the "
+        "DiDiC runs of phase 2 and every single-device DiDiC run inside the counted runs after them): "
         + json.dumps(main_launches, sort_keys=True))
     for name in KERNEL_ORDER:
         n = main_launches.get(name, 0)

@@ -6,6 +6,7 @@ checkout, in turns, on one card.
     python3 kernel_ab.py --other DIR --phase embedding_bag
     python3 kernel_ab.py --other DIR --phase flash_attention_bwd
     python3 kernel_ab.py --other DIR --phase segment_sum
+    python3 kernel_ab.py --other DIR --phase segment_spmm
 
 ``DIR`` is the root of another checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
@@ -14,9 +15,10 @@ it builds that checkout's kernels into its own ``build/`` and times that
 checkout's kernel.
 
 * ``--phase frontier_gather``, ``--phase embedding_bag``, ``--phase
-  flash_attention_bwd`` and ``--phase segment_sum`` are run by this
-  script's own code in each checkout, so they need nothing of the other
-  checkout but its wrapper, called by its signature.
+  flash_attention_bwd``, ``--phase segment_sum`` and ``--phase
+  segment_spmm`` are run by this script's own code in each checkout, so
+  they need nothing of the other checkout but its wrapper, called by its
+  signature.
   ``frontier_gather``: the GIS whole-graph layout at ``scale=1.0``
   (786,432 rows, C = 128, min mode, values drawn from seed 1 as in
   ``chip_smoke.py``), called without a row schedule and, where the
@@ -40,6 +42,22 @@ checkout's kernel.
   ``--long-segment 64,128,...`` the three are also timed with the
   checkout's ``ops.LONG_SEGMENT`` set to each value (records
   ``segment_sum_twitter_long_64``, ...), each held bit for bit to the plain version on the CPU.
+  ``segment_spmm``: DiDiC's product ``A_c @ X`` as the checkout's
+  ``core.didic.make_spmm`` builds it at ``scale=1.0`` (default route,
+  k = 4, ``X`` from seed 5) on filesystem, GIS and Twitter: two calls
+  bit-equal, and held to the plain version on the CPU
+  (``segment_sum_ref`` of ``ce[:, None] * X[r]`` over the senders; bit for
+  bit where the checkout has ``kernels.segment_spmm``, else its largest
+  gap is recorded as ``max_abs_err``); ``device_ms`` sums every CUDA
+  kernel a call runs. Beside it one DiDiC iteration (``core.didic._make_step``
+  from a random map, smoothing depth the mean of the 100-iteration
+  schedule, so 100 such iterations do the initial partitioning's
+  products): its host-clock ms (median of 3, ending in a synchronize),
+  its device ms and the ten CUDA kernels with the most device time
+  (``torch.profiler``), and the host's share, one less device over wall.
+  With ``--long-segment`` (a checkout with ``kernels.segment_spmm``) the
+  product is also timed with ``ops.LONG_SEGMENT`` at each value (records
+  ``segment_spmm_gis_long_64``, ...), each bit-checked against the CPU.
   Each call is held to the plain version (min mode bit-exact, the bag
   within 1e-6, the backward within 3e-2 of ``attention_bwd_lse_ref``) and
   timed as ``chip_smoke.py`` times kernels: one call between two CUDA
@@ -65,7 +83,8 @@ import sys
 
 THIS = os.path.dirname(os.path.abspath(__file__))
 MARK = "KERNEL_AB "
-TIMES = ("ms", "b2b_ms", "device_ms", "plain_ms", "library_ms", "library_b2b_ms", "shape")
+TIMES = ("ms", "b2b_ms", "device_ms", "plain_ms", "library_ms", "library_b2b_ms", "shape", "max_abs_err",
+         "iteration")
 TURN = f"""
 import json, statistics, sys, torch
 sys.path.insert(0, ".")
@@ -156,7 +175,9 @@ def flash_attention_bwd(records):
     records["sdpa_backward"] = timed(lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None], retain_graph=True))
 
 
-def device_ms(fn, kernel, calls=10):
+def device_kernels(fn, calls=10):
+    # (name, device ms a call, launches a call) of every CUDA kernel that
+    # `calls` calls of `fn` run, by torch.profiler, most time first
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,9 +187,14 @@ def device_ms(fn, kernel, calls=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return total / 1e3 / calls if total > 0 else None
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda row: -row[1])
+
+
+def device_ms(fn, kernel, calls=10):
+    total = sum(ms for name, ms, _ in device_kernels(fn, calls) if kernel in name)
+    return total if total > 0 else None
 
 
 def segment_sum(records):
@@ -216,10 +242,72 @@ def segment_sum(records):
     ops.LONG_SEGMENT = default
 
 
+def segment_spmm(records):
+    import importlib.util
+    import time
+    import numpy as np
+    from repro_torch.core import didic
+    from repro_torch.graphs import datasets
+    from repro_torch.kernels.segment_sum import segment_sum_ref
+
+    has_kernel = importlib.util.find_spec("repro_torch.kernels.segment_spmm") is not None
+    rng = np.random.default_rng(5)
+    for name in ("filesystem", "gis", "twitter"):
+        g = datasets.load(name, scale=1.0, seed=0)
+        cfg = didic.DidicConfig(k=4, smooth_cap=256 if name == "filesystem" else 64)
+        spmm, degc = didic.make_spmm(g, cfg, dev)
+        s, r, ce, _ = didic._edge_coefficients(g)
+        x = torch.as_tensor(rng.standard_normal((g.n_nodes, 4)).astype(np.float32), device=dev)
+        want = segment_sum_ref(torch.as_tensor(ce)[:, None] * x.cpu()[torch.as_tensor(r).long()],
+                               torch.as_tensor(s).long(), g.n_nodes)
+        got = spmm(x)
+        if not torch.equal(got.view(torch.int32), spmm(x).view(torch.int32)):
+            sys.exit(f"kernel_ab: DiDiC's product on {{name}}: two calls differ")
+        if has_kernel and not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            sys.exit(f"kernel_ab: DiDiC's product on {{name}} differs from the plain version on the CPU")
+        fn = lambda: spmm(x)
+        rec = {{**timed(fn), "device_ms": device_ms(fn, ""), "shape": [len(s), 4, g.n_nodes],
+               "max_abs_err": float((got.cpu() - want).abs().max())}}
+        depth = int(round(float(didic._smooth_schedule(cfg, 100, False).mean())))
+        step = didic._make_step(spmm, degc, cfg)
+        parts = torch.as_tensor(rng.integers(0, 4, g.n_nodes), dtype=torch.int32, device=dev)
+        state = didic._init_state(4, parts)
+        commit = torch.rand(g.n_nodes, generator=torch.Generator(device=dev).manual_seed(0), device=dev) < 0.9
+        it = lambda: step(state.w, state.l, state.parts, state.beta, commit, depth)
+        it()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            it()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        kernels_ = device_kernels(it, calls=1)
+        busy = sum(ms for _, ms, _ in kernels_)
+        rec["iteration"] = {{
+            "smooth_steps": depth, "products": cfg.primary_steps * (cfg.secondary_steps + 1) + depth,
+            "wall_ms": wall, "device_ms": busy, "host_share": 1.0 - busy / wall,
+            "top": [[k[:90], ms, n] for k, ms, n in kernels_[:10]]}}
+        records["segment_spmm_" + name] = rec
+        if has_kernel and THRESHOLDS:
+            from repro_torch.kernels.segment_spmm import ops
+            default = ops.LONG_SEGMENT
+            for at in THRESHOLDS:
+                ops.LONG_SEGMENT = at
+                sp = didic.SegmentSpmm(s, r, ce, g.n_nodes, dev)  # its grouping at this threshold
+                fn = lambda: sp(x)
+                if not torch.equal(fn().cpu().view(torch.int32), want.view(torch.int32)):
+                    sys.exit(f"kernel_ab: DiDiC's product on {{name}} at LONG_SEGMENT {{at}} differs from the CPU")
+                records[f"segment_spmm_{{name}}_long_{{at}}"] = {{**timed(fn), "device_ms": device_ms(fn, "")}}
+            ops.LONG_SEGMENT = default
+        del spmm, degc, g
+
+
 records = {{}}
 phase = sys.argv[1]
 THRESHOLDS = [int(x) for x in sys.argv[2].split(",") if x]
-if phase in ("frontier_gather", "embedding_bag", "flash_attention_bwd", "segment_sum"):
+if phase in ("frontier_gather", "embedding_bag", "flash_attention_bwd", "segment_sum", "segment_spmm"):
     globals()[phase](records)
 else:
     import chip_smoke
@@ -242,11 +330,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--phase", default="phase1_bell",
-                    help="frontier_gather, embedding_bag, flash_attention_bwd, segment_sum, or a chip_smoke.py "
-                         "phase function")
+                    help="frontier_gather, embedding_bag, flash_attention_bwd, segment_sum, segment_spmm, or a "
+                         "chip_smoke.py phase function")
     ap.add_argument("--long-segment", default="",
-                    help="segment_sum only: also time the three shapes with LONG_SEGMENT set to each of these "
-                         "comma-separated values (a checkout whose grouping has the threshold)")
+                    help="segment_sum and segment_spmm only: also time the three shapes with LONG_SEGMENT set to "
+                         "each of these comma-separated values (a checkout whose grouping has the threshold)")
     args = ap.parse_args(argv)
     roots = {"other": os.path.abspath(args.other), "this": THIS}
     turns = [{"side": side, "records": turn(roots[side], args.phase, args.long_segment)}

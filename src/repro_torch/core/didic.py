@@ -15,14 +15,16 @@ random commit mask (see the JAX module's docstring for why each is there).
 
 ``A_c @ X`` has two routes (:func:`make_spmm`):
 
-* **segment** (the default, and the route at the paper's scale): a
-  fixed-order per-row reduction. The coefficient edges stay sorted by
-  sender, as ``coalesce_edges`` leaves them; rows are grouped into buckets
-  of power-of-two width, each bucket gathers ``[rows, width, k]`` neighbour
-  values, multiplies by the zero-padded coefficients and sums over the
-  width axis, and the row sums are written back with ``index_copy_``
-  (each row once). No atomics, so the result is the same from run to run
-  on the card; float ``index_add_`` would not be.
+* **segment** (the default, and the route at the paper's scale): the
+  hand-written CSR product ``segment_spmm`` (:class:`SegmentSpmm`). The
+  coefficient edges stay sorted by sender, as ``coalesce_edges`` leaves
+  them, and are grouped into a CSR matrix once; one launch a product rounds
+  each term ``c_e · x[r_e]`` once and adds a row's terms in ascending
+  edge order from +0.0. That is the JAX package's product at this scale
+  (``ce[:, None] * take(x, r)`` then ``jax.ops.segment_sum``) in XLA's CPU
+  order, so on the CPU, where the plain version runs, a product equals the
+  JAX package's bit for bit, and on the card it equals the CPU's and
+  repeats from run to run (float ``index_add_`` on the card would not).
 * **kernel** (``DidicConfig.use_kernel``): the block-ELL packing of
   ``A_c`` through the hand-written ``bell_matmul`` kernel. The packing keeps
   vertex ids, so its size grows with how far a 128-row block's neighbours
@@ -42,7 +44,8 @@ rescale's mean, the balance fit's sizes and the commit are masked to the
 live rows, the commit mask has ``n_cap + 1`` entries, and dead rows hold
 exactly zero (their coefficient degree is 0 and no edge reaches them, so
 every product leaves them 0). The product is the segment route over the
-live, sender-sorted coefficient edges with ``n_cap + 1`` output rows: the
+live, sender-sorted coefficient edges with ``n_cap + 1`` output rows (the
+rows past ``n_nodes`` have no edge, so the product writes them 0): the
 padded edges of the JAX tables carry coefficient 0 and point at the dead
 sentinel row, so leaving them out changes no sum, and the reduction stays
 fixed-order (no float atomics, so a card run repeats itself bit for bit).
@@ -56,7 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +67,7 @@ import torch.nn.functional as F
 
 from repro_torch import builds, resolve_device
 from repro_torch.graphs.structure import Graph
+from repro_torch.kernels.segment_spmm import csr_matrix, segment_spmm
 
 __all__ = ["DidicConfig", "DidicState", "didic_partition", "didic_refine", "make_spmm"]
 
@@ -116,41 +120,20 @@ def _edge_coefficients(graph: Graph) -> Tuple[np.ndarray, np.ndarray, np.ndarray
 
 
 class SegmentSpmm:
-    """``A_c @ X`` as a fixed-order per-row reduction (module docstring).
+    """``A_c @ X`` through :func:`~repro_torch.kernels.segment_spmm.segment_spmm`
+    (module docstring).
 
     ``s`` must be sorted ascending (each row's edges contiguous, in the
-    order ``coalesce_edges`` left them); a row's sum runs over its edges in
-    that order, padded with zero coefficients to the bucket width.
+    order ``coalesce_edges`` left them; ``csr_matrix`` raises otherwise); a
+    row's sum runs over its edges in that order. The CSR matrix over ``n``
+    rows is built once, here.
     """
 
     def __init__(self, s: np.ndarray, r: np.ndarray, ce: np.ndarray, n: int, device):
-        s = np.asarray(s, dtype=np.int64)
-        if s.size and np.any(np.diff(s) < 0):
-            raise ValueError("SegmentSpmm needs edges sorted by sender")
-        counts = np.bincount(s, minlength=n)
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        rows = np.nonzero(counts)[0]
-        width = 1 << np.ceil(np.log2(counts[rows])).astype(np.int64)
-        self.n = n
-        self.buckets: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
-        for wd in np.unique(width):
-            rb = rows[width == wd]
-            slot = np.arange(wd)[None, :]
-            live = slot < counts[rb][:, None]
-            pos = np.where(live, starts[rb][:, None] + slot, 0)
-            nbr = np.where(live, np.asarray(r, dtype=np.int64)[pos], 0)
-            coef = np.where(live, ce[pos], np.float32(0.0)).astype(np.float32)
-            self.buckets.append((
-                torch.as_tensor(rb, device=device),
-                torch.as_tensor(nbr, device=device),
-                torch.as_tensor(coef, device=device),
-            ))
+        self.a = csr_matrix(*(torch.as_tensor(t, device=device) for t in (s, r, ce)), n)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros((self.n, x.shape[1]), dtype=x.dtype, device=x.device)
-        for rows, nbr, coef in self.buckets:
-            out.index_copy_(0, rows, (x[nbr] * coef[:, :, None]).sum(dim=1))
-        return out
+        return segment_spmm(x, self.a)
 
 
 def make_spmm(

@@ -177,9 +177,12 @@ def check_cuda_tensor(t, name: str, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-from repro_torch.kernels import bsr_spmm, embedding_bag, flash_attention, frontier, segment_sum  # noqa: E402  (registers KERNELS)
+from repro_torch.kernels import (  # noqa: E402  (registers KERNELS)
+    bsr_spmm, embedding_bag, flash_attention, frontier, segment_spmm, segment_sum,
+)
 
 __all__ = [
     "CudaKernel", "KERNELS", "NVCC_FLAGS", "build_all", "bsr_spmm", "check_cuda_tensor",
-    "embedding_bag", "flash_attention", "frontier", "launch_counts", "reset_launch_counts", "segment_sum",
+    "embedding_bag", "flash_attention", "frontier", "launch_counts", "reset_launch_counts", "segment_spmm",
+    "segment_sum",
 ]

@@ -876,3 +876,123 @@ def test_cuda_segment_sum_add_probe():
 
     cycles, ns = add_cycles(_cuda_or_skip())
     assert 1.0 <= cycles <= 64.0 and ns > 0.0
+
+
+def _spmm_stage_rows(f):
+    """Rows in one stage of ``csrc/segment_spmm.cu``'s long-role ring for
+    row width ``f``: a slice of at most 16 columns and the scales, each kept
+    as a power of two of rows (64 to 256) and 4 floats of padding within
+    1,312 floats."""
+    cw, r = min(f, 16), 256
+    while r > 64 and r > 1312 // (cw + 1) - 4:
+        r //= 2
+    return r
+
+
+def _spmm_card_and_cpu(dev, x, col, scale, ids, n):
+    """The card's product three times (one counted launch each, bit-equal)
+    and the plain version's on the CPU."""
+    from repro_torch.kernels.segment_spmm import KERNEL, csr_matrix, segment_spmm
+
+    a = csr_matrix(*(torch.as_tensor(t, device=dev) for t in (ids, col, scale)), n)
+    xc = torch.as_tensor(x, device=dev)
+    before = KERNEL.launches
+    got = [segment_spmm(xc, a) for _ in range(3)]
+    assert KERNEL.launches == before + 3
+    assert all(torch.equal(got[0].view(torch.int32), g.view(torch.int32)) for g in got[1:])
+    want = segment_spmm(torch.as_tensor(x), csr_matrix(*(torch.as_tensor(t) for t in (ids, col, scale)), n))
+    return got[0].cpu(), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 4, 8, 33])
+def test_cuda_segment_spmm_equals_the_cpu_bit_for_bit(f):
+    """A 47,691-edge hub (Twitter's largest), 60 hubs of mixed lengths,
+    rows at ``LONG_SEGMENT`` and one edge either side, at one and at five
+    ring stages and one edge either side, among 20,000 short and empty rows
+    and 3 empty rows at the end: the card equals the plain version on the
+    CPU bit for bit, three launches bit-equal; float64 ``x`` refused, and
+    ``x`` on another device than the matrix."""
+    from repro_torch.kernels.segment_spmm import csr_matrix, segment_spmm
+    from repro_torch.kernels.segment_spmm.ops import LONG_SEGMENT
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(f)
+    at, r = LONG_SEGMENT, _spmm_stage_rows(f)
+    hubs = [47_691, at - 1, at, at + 1, r - 1, r, r + 1, 5 * r - 1, 5 * r, 5 * r + 1]
+    hubs += rng.integers(at + 1, 4_000, size=60).tolist()
+    lengths = rng.integers(0, 12, size=20_000)
+    lengths[rng.choice(lengths.size, len(hubs), replace=False)] = hubs
+    ids = np.repeat(np.arange(lengths.size), lengths)
+    n, n_x = lengths.size + 3, 50_000
+    col = rng.integers(0, n_x, ids.size).astype(np.int32)
+    scale = (rng.standard_normal(ids.size) * np.exp(3 * rng.standard_normal(ids.size))).astype(np.float32)
+    x = (rng.standard_normal((n_x, f)) * np.exp(2 * rng.standard_normal((n_x, 1)))).astype(np.float32)
+    got, want = _spmm_card_and_cpu(dev, x, col, scale, ids, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[lengths.size:].any() and not got[:lengths.size][torch.as_tensor(lengths == 0)].any()
+    a = csr_matrix(*(torch.as_tensor(t, device=dev) for t in (ids, col, scale)), n)
+    with pytest.raises(TypeError):
+        segment_spmm(torch.as_tensor(x, device=dev).double(), a)
+    with pytest.raises(ValueError, match="x is on cuda:0, expected cpu"):
+        segment_spmm(torch.as_tensor(x, device=dev), a._replace(offsets=a.offsets.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 4, 33])
+def test_cuda_segment_spmm_every_edge_in_one_row(f):
+    """100,000 edges, all in row 1 of 3 (33 columns: 3 long blocks over the
+    hub): the card equals the plain version on the CPU bit for bit."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(200 + f)
+    x = rng.standard_normal((5_000, f)).astype(np.float32)
+    col = rng.integers(0, 5_000, 100_000).astype(np.int32)
+    scale = (rng.standard_normal(100_000) * np.exp(3 * rng.standard_normal(100_000))).astype(np.float32)
+    got, want = _spmm_card_and_cpu(dev, x, col, scale, np.ones(100_000, np.int64), 3)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_didic_overlay_product_keeps_dead_rows_zero():
+    """The capacity overlay's product (``n_cap + 1`` rows, the rows past
+    ``n_nodes`` dead) on the card equals the CPU's bit for bit, the dead
+    rows exactly 0 though ``x`` is not 0 there."""
+    from repro_torch.core.didic import _overlay_tables
+    from repro_torch.graphs import datasets
+
+    dev = _cuda_or_skip()
+    g = datasets.load("twitter", scale=0.01)
+    g.ensure_store(headroom=1.5)
+    card, _ = _overlay_tables(g, dev)
+    cpu, _ = _overlay_tables(g, "cpu")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((cpu.a.n, 4)).astype(np.float32))
+    got = card(x.to(dev)).cpu()
+    assert torch.equal(got.view(torch.int32), cpu(x).view(torch.int32))
+    assert not got[g.n_nodes:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_didic_iteration_repeats_through_segment_spmm():
+    """Two DiDiC iterations on GIS at ``scale=0.01`` on the card, run
+    twice: ``parts``, ``w`` and ``l`` bit-equal; every product one
+    ``segment_spmm`` launch (ψ(ρ+1) and the smoothing steps an iteration),
+    none of ``bell_matmul``."""
+    from repro_torch.core.didic import DidicConfig, _smooth_schedule, didic_partition
+    from repro_torch.graphs import datasets
+
+    dev = _cuda_or_skip()
+    g = datasets.load("gis", scale=0.01)
+    cfg = DidicConfig(k=4, iterations=2)
+    runs = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        runs.append(didic_partition(g, cfg, seed=4, device=dev))
+        counts = kernels.launch_counts()
+        products = cfg.iterations * cfg.primary_steps * (cfg.secondary_steps + 1)
+        assert counts["segment_spmm"] == products + int(_smooth_schedule(cfg, cfg.iterations, False).sum())
+        assert counts["bell_matmul"] == 0
+    (p1, s1), (p2, s2) = runs
+    assert np.array_equal(p1, p2)
+    assert torch.equal(s1.w.view(torch.int32), s2.w.view(torch.int32))
+    assert torch.equal(s1.l.view(torch.int32), s2.l.view(torch.int32))

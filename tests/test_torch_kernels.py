@@ -44,6 +44,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import TEST_SHAPES as FLASH_SHAPES
 from repro_torch.kernels.flash_attention.ref import attention_bwd_lse_ref, attention_bwd_ref, attention_lse_ref
 from repro_torch.kernels.frontier import frontier_gather, frontier_relax, make_frontier_gather, spill_tail
+from repro_torch.kernels.segment_spmm import csr_matrix, segment_spmm
 from repro_torch.kernels.segment_sum import gather, segment_sum
 
 # The suite runs in several worker processes at once; one intra-op thread
@@ -229,9 +230,10 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(monkeypatch):
     mha(torch.rand(1, 8, 4, 16), torch.rand(1, 8, 2, 16), torch.rand(1, 8, 2, 16))
     rows = torch.rand(6, 3, requires_grad=True)
     segment_sum(gather(rows, torch.tensor([0, 5, 5, 2])), torch.tensor([1, 0, 1, 3]), 4).sum().backward()
+    segment_spmm(torch.rand(6, 3), csr_matrix(torch.tensor([0, 0, 2]), torch.tensor([4, 0, 5]), torch.rand(3), 4))
     assert kernels.launch_counts() == {
         "frontier_gather": 0, "bell_matmul": 0, "embedding_bag": 0, "flash_attention": 0,
-        "flash_attention_bwd": 0, "segment_sum": 0}
+        "flash_attention_bwd": 0, "segment_sum": 0, "segment_spmm": 0}
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
