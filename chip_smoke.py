@@ -31,14 +31,18 @@ port's kernels from ``src/repro_torch/csrc`` first. Phases:
    on Twitter's hub alone beside the hub's chain floor; ``segment_spmm`` at
    DiDiC's coefficient matrices at ``scale=1.0`` (k = 4) equal to its plain
    version on the CPU bit for bit, two launches bit-equal, timed beside
-   ``torch.sparse.mm`` on CSR (cuSPARSE), Twitter's hub alone beside its
-   chain floor, k = 2 and 8 on GIS, and the capacity overlay's dead rows;
+   ``torch.sparse.mm`` on CSR (cuSPARSE), each of DiDiC's three updates as
+   its epilogue checked and timed beside the bare product, Twitter's hub
+   alone beside its chain floor, k = 2 and 8 on GIS, and the capacity
+   overlay's dead rows;
 2. the main path at the paper's scale (filesystem, GIS, Twitter at
    ``scale=1.0``, k=4): random, hard-coded and DiDiC partitions, the
    paper's 10 000-op evaluation log replayed through the service on the
    card, exactness of the batched engine against the scalar oracle on
    the first 64 ops, DiDiC's run-to-run determinism, every DiDiC product
-   one ``segment_spmm`` launch;
+   one ``segment_spmm`` launch with its update as the epilogue (counted by
+   epilogue), and 2 iterations with the updates fused against 2 with the
+   eager updates around a bare product, bit-equal;
 3. DiDiC's ``bell_matmul`` route on GIS at ``scale=0.01`` beside its
    ``segment_spmm`` route;
 4. DIN at its full config (``configs/din.FULL``): scoring 262,144
@@ -729,13 +733,13 @@ def segment_spmm_case(spmm, x, what):
     b2b_ms = time_cuda(call, inner=B2B)[0]
     device_ms = _device_ms_per_call(call, "segment_spmm")
     plain_ms = time_cuda(lambda: segment_spmm_ref(x, a.col, a.scale, a.ids, n), reps=5)[0]
-    lib = torch.sparse_csr_tensor(a.offsets, a.col.long(), a.scale, size=(n, x.shape[0]), check_invariants=True)
+    lib = torch.sparse_csr_tensor(a.offsets.long(), a.col.long(), a.scale, size=(n, x.shape[0]), check_invariants=True)
     check(torch.allclose(torch.sparse.mm(lib, x).cpu(), want, rtol=1e-4, atol=1e-4),
           f"segment_spmm {what}: cuSPARSE's CSR product agrees within 1e-4 (yardstick)")
     library_ms = time_cuda(lambda: torch.sparse.mm(lib, x))[0]
     library_b2b_ms = time_cuda(lambda: torch.sparse.mm(lib, x), inner=B2B)[0]
     # col and scale read once, x once, the offsets once; out written once
-    n_bytes = e * 4 + e * 4 + x.numel() * 4 + (n + 1) * 8 + n * f * 4
+    n_bytes = e * 4 + e * 4 + x.numel() * 4 + (n + 1) * a.offsets.element_size() + n * f * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * e * f)
     device = "not seen by the profiler" if device_ms is None else f"{device_ms:.4f} ms"
     say(f"segment_spmm {what} [{e:,} edges x {f}] into {n:,} rows: kernel {ms:.4f} ms, {b2b_ms:.4f} b2b "
@@ -744,7 +748,71 @@ def segment_spmm_case(spmm, x, what):
         f"{library_ms:.4f} ms, {library_b2b_ms:.4f} b2b; bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
     return {"max_abs_err": float((got.cpu() - want).abs().max()), "ms": ms, "b2b_ms": b2b_ms,
             "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "library_b2b_ms": library_b2b_ms, "shape": [e, f, n]}
+            "library_ms": library_ms, "library_b2b_ms": library_b2b_ms, "shape": [e, f, n], "n_bytes": n_bytes}
+
+
+def _epilogue_calls(a, x, degc, live, rng):
+    """DiDiC's three updates fused with the product of ``a`` on ``x`` (an
+    ``[n, k]`` tensor on the card), their operands drawn from ``rng`` beside
+    ``degc``: {epilogue: (call on the card, call on the CPU, the operands'
+    extra bytes: read once, the second output written once)}."""
+    from repro_torch.core.didic import _BENEFIT
+    from repro_torch.kernels.segment_spmm import segment_spmm_primary, segment_spmm_secondary, segment_spmm_smooth
+
+    n, k = x.shape
+    l = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=x.device)
+    parts = torch.as_tensor(rng.integers(0, k, n).astype(np.int32), device=x.device)
+    if live is not None:
+        x, l = x * live[:, None], l * live[:, None]
+    safe = torch.clamp(degc, min=1e-6)
+    cpu_a = a._replace(ids=a.ids.cpu(), col=a.col.cpu(), scale=a.scale.cpu())
+    host = {"x": x.cpu(), "l": l.cpu(), "degc": degc.cpu(), "parts": parts.cpu(), "safe": safe.cpu(),
+            "live": None if live is None else live.cpu()}
+    card = {"x": x, "l": l, "degc": degc, "parts": parts, "safe": safe, "live": live}
+    sec = lambda m, t: segment_spmm_secondary(t["x"], m, t["l"], t["degc"], t["parts"], _BENEFIT, t["live"])
+    pri = lambda m, t: segment_spmm_primary(t["x"], m, t["l"], t["degc"])
+    smo = lambda m, t: segment_spmm_smooth(t["x"], m, t["safe"])
+    rows = n * k * 4
+    extra = {"secondary": 2 * rows + 8 * n + (0 if live is None else n), "primary": rows + 4 * n, "smooth": 4 * n}
+    return {name: (lambda fn=fn: fn(a, card), lambda fn=fn: fn(cpu_a, host), extra[name])
+            for name, fn in (("secondary", sec), ("primary", pri), ("smooth", smo))}
+
+
+def _flat(out):
+    """An epilogue's result as one tensor (secondary's two stacked)."""
+    return torch.stack(out) if isinstance(out, tuple) else out
+
+
+def segment_spmm_epilogues(spmm, x, degc, what, bare, live=None, timed=True):
+    """Each epilogue (DiDiC's secondary, primary and smoothing updates
+    fused with the product) on the card equal to its plain version on the
+    CPU bit for bit, two launches bit-equal; with ``timed``, timed as the
+    bare product is (single, b2b, device time) beside its bytes bound: the
+    bare product's bytes and the epilogue's operands. Returns
+    {epilogue: numbers}."""
+    rng = np.random.default_rng(6)
+    out = {}
+    for name, (card, cpu, extra) in _epilogue_calls(spmm.a, x, degc, live, rng).items():
+        got, want = _flat(card()), _flat(cpu())
+        check(_bits_equal(got, want), f"segment_spmm {what}, {name} epilogue: the card == the plain version on the "
+                                      f"CPU, bit for bit")
+        check(_bits_equal(got, _flat(card())), f"segment_spmm {what}, {name} epilogue: two launches give the same bits")
+        if live is not None:
+            check(not got[..., ~live, :].any(), f"segment_spmm {what}, {name} epilogue: every dead row exactly 0")
+        if not timed:
+            continue
+        ms = time_cuda(card)[0]
+        b2b_ms = time_cuda(card, inner=B2B)[0]
+        device_ms = _device_ms_per_call(card, "segment_spmm")
+        n_bytes = bare["n_bytes"] + extra
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * spmm.a.col.numel() * x.shape[1] + 4.0 * x.numel())
+        device = "not seen by the profiler" if device_ms is None else f"{device_ms:.4f} ms"
+        say(f"segment_spmm {what}, {name} epilogue: {ms:.4f} ms, {b2b_ms:.4f} b2b ({100 * b_ms / b2b_ms:.1f} % of "
+            f"the bound), device time a call {device}; bare product {bare['b2b_ms']:.4f} b2b; bound {b_ms:.4f} ms "
+            f"({b_by}, {n_bytes / 1e6:.1f} MB)")
+        out[name] = {"ms": ms, "b2b_ms": b2b_ms, "device_ms": device_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": float((got.cpu() - want).abs().max())}
+    return out
 
 
 def segment_spmm_hub(spmm, x, whole, dev):
@@ -780,38 +848,46 @@ def phase1_segment_spmm(dev, graphs, records):
     """``segment_spmm`` at DiDiC's coefficient matrices at ``scale=1.0``
     (k = 4, ``x`` from seed 5), each built as ``make_spmm`` builds it (a
     ``SegmentSpmm``, its one-off build timed), held bit for bit to the plain
-    version on the CPU and timed; Twitter's hub also alone; k = 2 and 8 on
-    GIS; and the capacity overlay's product on Twitter (``n_cap + 1`` rows
-    of a store at the default headroom, on a copy of the graph): the dead
-    rows exactly 0 though ``x`` is not, the live rows the k = 4 product's
-    bits. The GIS case is the record's timed shape."""
+    version on the CPU and timed, bare and with each of DiDiC's updates as
+    its epilogue; Twitter's hub also alone; k = 2 and 8 on GIS (the lane
+    groups); and the capacity overlay's product on Twitter (``n_cap
+    + 1`` rows of a store at the default headroom, on a copy of the graph):
+    the dead rows exactly 0 though ``x`` is not, the live rows the k = 4
+    product's bits, and the epilogues with the live mask. The GIS case is
+    the record's timed shape."""
     from repro_torch.core.didic import SegmentSpmm, _edge_coefficients, _overlay_tables
 
     rng = np.random.default_rng(5)
     out = {}
     for name in ("filesystem", "gis", "twitter"):
         g = graphs[name]
-        s, r, ce, _ = _edge_coefficients(g)
+        s, r, ce, degc_host = _edge_coefficients(g)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         spmm = SegmentSpmm(s, r, ce, g.n_nodes, dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         say(f"segment_spmm {name}: the CSR matrix's one-off build (SegmentSpmm: offsets, long rows sorted, "
-            f"{spmm.a.long_ids.numel():,} of them) {build_s:.3f} s")
+            f"{spmm.a.long_ids.numel():,} of them, {spmm.a.tiles.shape[0]:,} tiles of the others, at most "
+            f"{spmm.a.tile_edges:,} edges a tile) {build_s:.3f} s")
         x = torch.as_tensor(rng.standard_normal((g.n_nodes, 4)).astype(np.float32), device=dev)
         out[name] = segment_spmm_case(spmm, x, f"DiDiC's {name} product")
         out[name]["build_s"] = build_s
+        degc = torch.as_tensor(degc_host, device=dev)
+        out[name]["epilogues"] = segment_spmm_epilogues(spmm, x, degc, f"DiDiC's {name} product", out[name])
         if name == "twitter":
             out[name]["hub"] = segment_spmm_hub(spmm, x, out[name], dev)
             bare = _bare(g)
             bare.ensure_store()
-            overlay, _ = _overlay_tables(bare, dev)
+            overlay, degc_o = _overlay_tables(bare, dev)
             xo = torch.as_tensor(rng.standard_normal((overlay.a.n, 4)).astype(np.float32), device=dev)
-            got, _ = _spmm_check(overlay, xo, f"Twitter's capacity overlay ({overlay.a.n - g.n_nodes:,} dead rows)")
+            what = f"Twitter's capacity overlay ({overlay.a.n - g.n_nodes:,} dead rows)"
+            got, _ = _spmm_check(overlay, xo, what)
             check(not got[g.n_nodes:].any(), "segment_spmm on the overlay: every dead row exactly 0")
             check(_bits_equal(got[:g.n_nodes], spmm(xo[:g.n_nodes])),
                   "segment_spmm on the overlay: the live rows equal the product without the store, bit for bit")
+            live = torch.arange(overlay.a.n, device=dev) < g.n_nodes
+            segment_spmm_epilogues(overlay, xo, degc_o, what, out[name], live=live, timed=False)
             del bare, overlay, xo
         if name == "gis":
             for k in (2, 8):
@@ -859,6 +935,41 @@ def _didic_products(config, iterations: int) -> int:
     return iterations * diffusion + smoothing
 
 
+def _didic_routes(config, iterations: int) -> dict:
+    """``segment_spmm``'s launches by epilogue in ``iterations`` DiDiC
+    iterations from a cold start: ψ·ρ secondary and ψ primary products an
+    iteration, the smoothing schedule's steps, no bare product."""
+    smoothing = _didic_products(config, iterations) - iterations * config.primary_steps * (config.secondary_steps + 1)
+    return {"secondary": iterations * config.primary_steps * config.secondary_steps,
+            "primary": iterations * config.primary_steps, "smooth": smoothing}
+
+
+def _fused_against_generic(graph, config, dev, name):
+    """Two DiDiC iterations at full smoothing width (the refine's schedule)
+    from one random map, through ``SegmentSpmm``'s fused calls and through
+    the product wrapped in a plain callable (the eager updates around a bare
+    product): w, l, parts and beta bit-equal; both timed (host clock, ending
+    in a synchronize)."""
+    from repro_torch.core import didic
+
+    spmm, degc = didic.make_spmm(graph, config, dev)
+    parts0 = torch.as_tensor(np.random.default_rng(11).integers(0, config.k, graph.n_nodes).astype(np.int32),
+                             device=dev)
+    runs, walls = [], []
+    for product in (spmm, lambda v: spmm(v)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(didic._run_iterations(didic._init_state(config.k, parts0), product, degc, config, 2, seed=11,
+                                          start_wide=True))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 2 * 1e3)
+    fused, generic = runs
+    check(all(_bits_equal(getattr(fused, f), getattr(generic, f)) for f in ("w", "l", "parts", "beta")),
+          f"{name}: 2 DiDiC iterations (smoothing {config.smooth_cap}) with the updates fused into segment_spmm == "
+          f"the eager updates around it: w, l, parts and beta bit-equal ({walls[0]:.2f} against {walls[1]:.2f} "
+          f"ms an iteration)")
+
+
 def phase2_dataset(name, graph, dev, main_launches, held):
     """Drive the static experiment on one dataset. The launch counts of
     the DiDiC run and of each main-path replay (counts set to 0 just before
@@ -888,6 +999,7 @@ def phase2_dataset(name, graph, dev, main_launches, held):
     torch.cuda.synchronize()
     didic_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    routes = dict(kernels.KERNELS["segment_spmm"].route_launches)
     _add_counts(main_launches, counts)
     parts["didic"] = svc.parts.copy()
     say(f"phase 2: {name} DiDiC {DIDIC_ITERATIONS} iterations (segment_spmm): {didic_s:.2f} s, "
@@ -895,7 +1007,10 @@ def phase2_dataset(name, graph, dev, main_launches, held):
     products = _didic_products(config, DIDIC_ITERATIONS)
     check(counts["segment_spmm"] == products,
           f"{name}: each of DiDiC's {products:,} products one segment_spmm launch ({counts['segment_spmm']:,})")
+    check(routes == _didic_routes(config, DIDIC_ITERATIONS),
+          f"{name}: each product's update in its launch's epilogue ({json.dumps(routes, sort_keys=True)})")
     check(counts["bell_matmul"] == 0, f"{name}: DiDiC's segment route launched no bell_matmul")
+    _fused_against_generic(graph, config, dev, name)
 
     tg = {}
     for pname, p in parts.items():

@@ -6,7 +6,7 @@ checkout, in turns, on one card.
     python3 kernel_ab.py --other DIR --phase embedding_bag
     python3 kernel_ab.py --other DIR --phase flash_attention_bwd
     python3 kernel_ab.py --other DIR --phase segment_sum
-    python3 kernel_ab.py --other DIR --phase segment_spmm
+    python3 kernel_ab.py --other DIR --phase segment_spmm [--long-segment 64,256 | --tile-edges 512,1024]
 
 ``DIR`` is the root of another checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
@@ -55,9 +55,13 @@ checkout's kernel.
   products): its host-clock ms (median of 3, ending in a synchronize),
   its device ms and the ten CUDA kernels with the most device time
   (``torch.profiler``), and the host's share, one less device over wall.
-  With ``--long-segment`` (a checkout with ``kernels.segment_spmm``) the
-  product is also timed with ``ops.LONG_SEGMENT`` at each value (records
-  ``segment_spmm_gis_long_64``, ...), each bit-checked against the CPU.
+  The iteration's ``device_kernels`` counts the CUDA kernels it runs
+  (``kernels_per_product`` over its products). With ``--long-segment`` (a
+  checkout with ``kernels.segment_spmm``) the product is also timed with
+  ``ops.LONG_SEGMENT`` at each value (records
+  ``segment_spmm_gis_long_64``, ...), with ``--tile-edges`` (a checkout
+  whose matrix has tiles) with ``ops.TILE_EDGES`` at each value (records
+  ``segment_spmm_gis_tile_1024``, ...), each bit-checked against the CPU.
   Each call is held to the plain version (min mode bit-exact, the bag
   within 1e-6, the backward within 3e-2 of ``attention_bwd_lse_ref``) and
   timed as ``chip_smoke.py`` times kernels: one call between two CUDA
@@ -285,28 +289,33 @@ def segment_spmm(records):
         wall = statistics.median(walls)
         kernels_ = device_kernels(it, calls=1)
         busy = sum(ms for _, ms, _ in kernels_)
+        products = cfg.primary_steps * (cfg.secondary_steps + 1) + depth
+        launched = sum(n for _, _, n in kernels_)
         rec["iteration"] = {{
-            "smooth_steps": depth, "products": cfg.primary_steps * (cfg.secondary_steps + 1) + depth,
-            "wall_ms": wall, "device_ms": busy, "host_share": 1.0 - busy / wall,
+            "smooth_steps": depth, "products": products, "wall_ms": wall, "device_ms": busy,
+            "host_share": 1.0 - busy / wall, "device_kernels": launched, "kernels_per_product": launched / products,
             "top": [[k[:90], ms, n] for k, ms, n in kernels_[:10]]}}
         records["segment_spmm_" + name] = rec
-        if has_kernel and THRESHOLDS:
-            from repro_torch.kernels.segment_spmm import ops
-            default = ops.LONG_SEGMENT
+        knob = "TILE_EDGES" if TILES else "LONG_SEGMENT"
+        ops = importlib.import_module("repro_torch.kernels.segment_spmm.ops") if has_kernel else None
+        if THRESHOLDS and hasattr(ops, knob):
+            default = getattr(ops, knob)
             for at in THRESHOLDS:
-                ops.LONG_SEGMENT = at
+                setattr(ops, knob, at)
                 sp = didic.SegmentSpmm(s, r, ce, g.n_nodes, dev)  # its grouping at this threshold
                 fn = lambda: sp(x)
                 if not torch.equal(fn().cpu().view(torch.int32), want.view(torch.int32)):
-                    sys.exit(f"kernel_ab: DiDiC's product on {{name}} at LONG_SEGMENT {{at}} differs from the CPU")
-                records[f"segment_spmm_{{name}}_long_{{at}}"] = {{**timed(fn), "device_ms": device_ms(fn, "")}}
-            ops.LONG_SEGMENT = default
+                    sys.exit(f"kernel_ab: DiDiC's product on {{name}} at {{knob}} {{at}} differs from the CPU")
+                tag = "tile" if TILES else "long"
+                records[f"segment_spmm_{{name}}_{{tag}}_{{at}}"] = {{**timed(fn), "device_ms": device_ms(fn, "")}}
+            setattr(ops, knob, default)
         del spmm, degc, g
 
 
 records = {{}}
 phase = sys.argv[1]
 THRESHOLDS = [int(x) for x in sys.argv[2].split(",") if x]
+TILES = sys.argv[3] == "tiles"
 if phase in ("frontier_gather", "embedding_bag", "flash_attention_bwd", "segment_sum", "segment_spmm"):
     globals()[phase](records)
 else:
@@ -316,8 +325,8 @@ print({MARK!r} + json.dumps({{n: {{k: r[k] for k in {TIMES!r} if k in r}} for n,
 """
 
 
-def turn(root: str, phase: str, thresholds: str = "") -> dict:
-    proc = subprocess.run([sys.executable, "-c", TURN, phase, thresholds], cwd=root, capture_output=True,
+def turn(root: str, phase: str, thresholds: str = "", knob: str = "long") -> dict:
+    proc = subprocess.run([sys.executable, "-c", TURN, phase, thresholds, knob], cwd=root, capture_output=True,
                           text=True)
     if proc.returncode != 0:
         sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -335,9 +344,15 @@ def main(argv=None) -> int:
     ap.add_argument("--long-segment", default="",
                     help="segment_sum and segment_spmm only: also time the three shapes with LONG_SEGMENT set to "
                          "each of these comma-separated values (a checkout whose grouping has the threshold)")
+    ap.add_argument("--tile-edges", default="",
+                    help="segment_spmm only: also time the three products with the tile plan's TILE_EDGES set to "
+                         "each of these comma-separated values (a checkout with tiles)")
     args = ap.parse_args(argv)
+    if args.long_segment and args.tile_edges:
+        ap.error("--long-segment and --tile-edges sweep one knob at a time")
     roots = {"other": os.path.abspath(args.other), "this": THIS}
-    turns = [{"side": side, "records": turn(roots[side], args.phase, args.long_segment)}
+    knob = "tiles" if args.tile_edges else "long"
+    turns = [{"side": side, "records": turn(roots[side], args.phase, args.long_segment or args.tile_edges, knob)}
              for side in ("other", "this", "this", "other")]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

@@ -25,6 +25,10 @@ random commit mask (see the JAX module's docstring for why each is there).
   order, so on the CPU, where the plain version runs, a product equals the
   JAX package's bit for bit, and on the card it equals the CPU's and
   repeats from run to run (float ``index_add_`` on the card would not).
+  Each of the step's updates (secondary, primary, smoothing) runs in its
+  product's launch, the kernel rounding each of its operations once in the
+  eager expression's order, so a fused step equals the eager one bit for
+  bit; the secondary launch also writes the next secondary's input.
 * **kernel** (``DidicConfig.use_kernel``): the block-ELL packing of
   ``A_c`` through the hand-written ``bell_matmul`` kernel. The packing keeps
   vertex ids, so its size grows with how far a 128-row block's neighbours
@@ -67,7 +71,9 @@ import torch.nn.functional as F
 
 from repro_torch import builds, resolve_device
 from repro_torch.graphs.structure import Graph
-from repro_torch.kernels.segment_spmm import csr_matrix, segment_spmm
+from repro_torch.kernels.segment_spmm import (
+    csr_matrix, segment_spmm, segment_spmm_primary, segment_spmm_secondary, segment_spmm_smooth,
+)
 
 __all__ = ["DidicConfig", "DidicState", "didic_partition", "didic_refine", "make_spmm"]
 
@@ -127,6 +133,11 @@ class SegmentSpmm:
     order ``coalesce_edges`` left them; ``csr_matrix`` raises otherwise); a
     row's sum runs over its edges in that order. The CSR matrix over ``n``
     rows is built once, here.
+
+    Beside the bare product it offers the step's three updates fused with
+    their product (:meth:`secondary`, :meth:`primary`, :meth:`smooth`: one
+    launch each on the card, the step's own expressions on the CPU), which
+    :func:`_make_step` takes where its ``spmm`` is a ``SegmentSpmm``.
     """
 
     def __init__(self, s: np.ndarray, r: np.ndarray, ce: np.ndarray, n: int, device):
@@ -134,6 +145,20 @@ class SegmentSpmm:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return segment_spmm(x, self.a)
+
+    def secondary(self, lb: torch.Tensor, l: torch.Tensor, degc: torch.Tensor, parts: torch.Tensor,
+                  live: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``l − degc⊙lb + A_c @ lb`` and the next step's ``lb``, its
+        ``l / benefit`` (``degc`` ``[N]``)."""
+        return segment_spmm_secondary(lb, self.a, l, degc, parts, _BENEFIT, live)
+
+    def primary(self, w: torch.Tensor, l: torch.Tensor, degc: torch.Tensor) -> torch.Tensor:
+        """``w + l − degc⊙w + A_c @ w``."""
+        return segment_spmm_primary(w, self.a, l, degc)
+
+    def smooth(self, x: torch.Tensor, safe_deg: torch.Tensor) -> torch.Tensor:
+        """``0.5·x + 0.5·(A_c @ x) / safe_deg`` (``safe_deg`` ``[N]``)."""
+        return segment_spmm_smooth(x, self.a, safe_deg)
 
 
 def make_spmm(
@@ -176,9 +201,16 @@ def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig,
     the rescale's mean and the balance fit's sizes, and ``n_rows`` is the
     row count of all the blocks. ``live`` (a bool mask of the rows this
     call steps) and ``live_n`` (the live rows over every rank) make it the
-    capacity-overlay step (module docstring)."""
+    capacity-overlay step (module docstring).
+
+    A ``SegmentSpmm`` product runs each update fused with its product (one
+    launch a product on the card; the same expressions on the CPU); any
+    other ``spmm`` (the kernel route, the mesh's halo product) runs them
+    eagerly around it."""
     k = config.k
-    safe_deg = torch.clamp(degc, min=1e-6)[:, None]
+    fused = spmm if isinstance(spmm, SegmentSpmm) else None
+    degc_rows, safe_rows = degc, torch.clamp(degc, min=1e-6)
+    safe_deg = safe_rows[:, None]
     degc = degc[:, None]
     classes = torch.arange(k, dtype=torch.int32, device=degc.device)
     livef = None if live is None else live.to(torch.float32)[:, None]
@@ -197,11 +229,20 @@ def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig,
         if livef is not None:
             l = l * livef
         benefit = 1.0 + (_BENEFIT - 1.0) * onehot  # 10 for members, else 1
-        for _ in range(config.primary_steps):
-            for _ in range(config.secondary_steps):
-                lb = l / benefit
-                l = l - degc * lb + spmm(lb)
-            w = w + l - degc * w + spmm(w)
+        if fused is None:
+            for _ in range(config.primary_steps):
+                for _ in range(config.secondary_steps):
+                    lb = l / benefit
+                    l = l - degc * lb + spmm(lb)
+                w = w + l - degc * w + spmm(w)
+        else:
+            # each secondary product also writes the next one's l / benefit
+            # (l does not change across a primary step)
+            lb = l / benefit
+            for _ in range(config.primary_steps):
+                for _ in range(config.secondary_steps):
+                    l, lb = fused.secondary(lb, l, degc_rows, parts, live)
+                w = fused.primary(w, l, degc_rows)
         if allreduce is None and live is None:
             mean = w.mean()
         else:
@@ -211,7 +252,10 @@ def _make_step(spmm: Callable, degc: torch.Tensor, config: DidicConfig,
         # Annealed lazy-random-walk assignment smoothing (fixes #3, #4).
         smoothed = w
         for _ in range(smooth_steps):
-            smoothed = 0.5 * smoothed + 0.5 * spmm(smoothed) / safe_deg
+            if fused is None:
+                smoothed = 0.5 * smoothed + 0.5 * spmm(smoothed) / safe_deg
+            else:
+                smoothed = fused.smooth(smoothed, safe_rows)
         # ScaleBalance (fix #2): fit β so argmax sizes approach N/k.
         tgt = n / k
         for _ in range(config.balance_iters):

@@ -972,6 +972,119 @@ def test_cuda_didic_overlay_product_keeps_dead_rows_zero():
     assert not got[g.n_nodes:].any()
 
 
+def _epilogue_matrix(rng, f, dead):
+    """Rows for the epilogue tests (square: x has the matrix's rows): a
+    47,691-edge hub and long rows of mixed lengths, a short row alone
+    between two long rows (a one-row tile), eight rows of exactly
+    ``LONG_SEGMENT`` edges in a row (a tile of exactly ``TILE_EDGES``),
+    empty rows, 20,000 short rows, and ``dead`` empty rows at the end."""
+    from repro_torch.kernels.segment_spmm.ops import LONG_SEGMENT, TILE_EDGES
+
+    at = LONG_SEGMENT
+    lengths = rng.integers(0, 12, size=20_000)
+    lengths[100:103] = [at + 1, 3, at + 5]
+    lengths[200:200 + TILE_EDGES // at] = at
+    lengths[rng.choice(np.arange(1_000, 20_000), 40, replace=False)] = [47_691] + rng.integers(
+        at + 1, 4_000, 39).tolist()
+    lengths = np.concatenate([lengths, np.zeros(dead, np.int64)])
+    ids = np.repeat(np.arange(lengths.size), lengths)
+    n = lengths.size
+    col = rng.integers(0, n - dead, ids.size).astype(np.int32)
+    scale = (rng.standard_normal(ids.size) * np.exp(3 * rng.standard_normal(ids.size))).astype(np.float32)
+    live = np.arange(n) < n - dead
+    spread = lambda: ((rng.standard_normal((n, f)) * np.exp(2 * rng.standard_normal((n, 1)))).astype(np.float32)
+                      * live[:, None])
+    return ids, col, scale, n, live, spread
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 8, 33])
+def test_cuda_segment_spmm_epilogues_equal_the_cpu_bit_for_bit(f):
+    """DiDiC's updates fused with the product (secondary with its next
+    input, primary, smoothing) on the card equal their plain versions on the
+    CPU bit for bit, three launches bit-equal and counted under their
+    routes, with a 47,691-edge hub, the tiles' edge cases and 500 dead rows
+    (not live, x and l 0 there: every output 0 there)."""
+    from repro_torch.kernels.segment_spmm import (
+        KERNEL, csr_matrix, segment_spmm_primary, segment_spmm_secondary, segment_spmm_smooth,
+    )
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(300 + f)
+    ids, col, scale, n, live, spread = _epilogue_matrix(rng, f, dead=500)
+    x, l = spread(), spread()
+    parts = rng.integers(0, f, n).astype(np.int32)
+    degc = (rng.random(n) * 3).astype(np.float32)
+    degc[rng.random(n) < 0.01] = 0.0                    # the clamp's floor in the smoothing
+    safe = np.maximum(degc, np.float32(1e-6))
+    calls = {
+        "secondary": lambda a, t: segment_spmm_secondary(t["x"], a, t["l"], t["degc"], t["parts"], 10.0, t["live"]),
+        "primary": lambda a, t: segment_spmm_primary(t["x"], a, t["l"], t["degc"]),
+        "smooth": lambda a, t: segment_spmm_smooth(t["x"], a, t["safe"]),
+    }
+    host = {"x": x, "l": l, "degc": degc, "parts": parts, "live": live, "safe": safe}
+    cpu = {k: torch.as_tensor(v) for k, v in host.items()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    a_cpu = csr_matrix(*(torch.as_tensor(t) for t in (ids, col, scale)), n)
+    a_card = csr_matrix(*(torch.as_tensor(t, device=dev) for t in (ids, col, scale)), n)
+    for route, call in calls.items():
+        before, before_route = KERNEL.launches, KERNEL.route_launches.get(route, 0)
+        got = [call(a_card, card) for _ in range(3)]
+        assert KERNEL.launches == before + 3 and KERNEL.route_launches[route] == before_route + 3
+        want = call(a_cpu, cpu)
+        got0, want = (got[0], want) if route != "secondary" else (torch.stack(got[0]), torch.stack(want))
+        for g in got[1:]:
+            g = g if route != "secondary" else torch.stack(g)
+            assert torch.equal(got0.view(torch.int32), g.view(torch.int32)), route
+        assert torch.equal(got0.cpu().view(torch.int32), want.view(torch.int32)), route
+        assert not got0[..., n - 500:, :].any(), route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [False, True])
+def test_cuda_fused_didic_iteration_equals_the_generic_one(store):
+    """Two DiDiC iterations on the card through ``SegmentSpmm``'s fused
+    calls against the same iterations with the product wrapped in a plain
+    callable (the eager updates around it): w, l, parts and beta bit for
+    bit; the fused run one ``segment_spmm`` launch a product. GIS at
+    ``scale=0.01``; with the store, Twitter's capacity overlay."""
+    from repro_torch.core import didic
+    from repro_torch.core.didic import DidicConfig
+    from repro_torch.graphs import datasets
+
+    dev = _cuda_or_skip()
+    cfg = DidicConfig(k=4)
+    if store:
+        g = datasets.load("twitter", scale=0.01)
+        g.ensure_store(headroom=1.5)
+        spmm, degc = didic._overlay_tables(g, dev)
+        live = torch.arange(spmm.a.n, device=dev) < g.n_nodes
+        kw = {"live": live, "live_n": g.n_nodes}
+    else:
+        g = datasets.load("gis", scale=0.01)
+        spmm, degc = didic.make_spmm(g, cfg, dev)
+        live, kw = None, {}
+    n = spmm.a.n
+    rng = np.random.default_rng(9)
+    parts0 = torch.as_tensor(rng.integers(0, 4, n).astype(np.int32), device=dev)
+    commits = [torch.as_tensor(rng.random(n) < 0.9, device=dev) for _ in range(2)]
+    runs = []
+    for product in (spmm, lambda x: spmm(x)):
+        state = didic._init_state(4, parts0)
+        w, l, parts, beta = state.w, state.l, state.parts, state.beta
+        if live is not None:
+            w = l = w * live[:, None]
+        step = didic._make_step(product, degc, cfg, **kw)
+        kernels.reset_launch_counts()
+        for commit, depth in zip(commits, (4, cfg.smooth_cap)):
+            w, l, parts, beta = step(w, l, parts, beta, commit, depth)
+        runs.append(((w, l, parts, beta), kernels.launch_counts()["segment_spmm"]))
+    (fused, launched), (generic, _) = runs
+    assert launched == 2 * cfg.primary_steps * (cfg.secondary_steps + 1) + 4 + cfg.smooth_cap
+    for field, a, b in zip(("w", "l", "parts", "beta"), fused, generic):
+        assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)), field
+
+
 @pytest.mark.cuda
 def test_cuda_didic_iteration_repeats_through_segment_spmm():
     """Two DiDiC iterations on GIS at ``scale=0.01`` on the card, run

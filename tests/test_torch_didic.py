@@ -122,3 +122,61 @@ def test_segment_route_is_run_to_run_deterministic():
     p2, s2 = didic_partition(g, cfg, seed=3, device="cpu")
     np.testing.assert_array_equal(p1, p2)
     assert s1.w.equal(s2.w)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _two_iterations(spmm, degc, n, k, seed, live=None):
+    """Two step calls from a random map (smoothing 4, then the cap), the
+    commit masks drawn from ``seed``."""
+    from repro_torch.core import didic
+
+    rng = np.random.default_rng(seed)
+    parts = torch.as_tensor(rng.integers(0, k, n).astype(np.int32))
+    state = didic._init_state(k, parts)
+    if live is not None:  # the overlay's seed: zero loads on the dead rows
+        state.w = state.l = state.w * live[:, None]
+    cfg = DidicConfig(k=k)
+    step = didic._make_step(spmm, degc, cfg, live=live, live_n=None if live is None else int(live.sum()))
+    w, l, parts, beta = state.w, state.l, state.parts, state.beta
+    for depth in (4, cfg.smooth_cap):
+        commit = torch.as_tensor(rng.random(n) < 0.9)
+        w, l, parts, beta = step(w, l, parts, beta, commit, depth)
+    return w, l, parts, beta
+
+
+@pytest.mark.parametrize("name", ["filesystem", "gis", "twitter"])
+def test_fused_step_equals_the_generic_step(name):
+    """The step through ``SegmentSpmm``'s fused calls (each update in its
+    product's call) against the same step with the product wrapped in a
+    plain callable (the eager updates around it): w, l, parts and beta bit
+    for bit after two iterations."""
+    from repro_torch.core import didic
+
+    g = datasets.load(name, scale=0.003)
+    spmm, degc = didic.make_spmm(g, DidicConfig(k=4), device="cpu")
+    assert isinstance(spmm, didic.SegmentSpmm)
+    fused = _two_iterations(spmm, degc, g.n_nodes, 4, seed=7)
+    generic = _two_iterations(lambda x: spmm(x), degc, g.n_nodes, 4, seed=7)
+    for field, a, b in zip(("w", "l", "parts", "beta"), fused, generic):
+        assert torch.equal(_bits(a), _bits(b)), field
+
+
+@pytest.mark.parametrize("name", ["filesystem", "twitter"])
+def test_fused_overlay_step_equals_the_generic_step(name):
+    """The same on the capacity overlay (``n_cap + 1`` rows, the rows past
+    ``n_nodes`` dead): bit for bit, the dead rows of w and l exactly 0."""
+    from repro_torch.core import didic
+
+    g = datasets.load(name, scale=0.003)
+    store = g.ensure_store(headroom=1.5)
+    spmm, degc = didic._overlay_tables(g, "cpu")
+    n_rows = store.n_cap + 1
+    live = torch.arange(n_rows) < g.n_nodes
+    fused = _two_iterations(spmm, degc, n_rows, 4, seed=8, live=live)
+    generic = _two_iterations(lambda x: spmm(x), degc, n_rows, 4, seed=8, live=live)
+    for field, a, b in zip(("w", "l", "parts", "beta"), fused, generic):
+        assert torch.equal(_bits(a), _bits(b)), field
+    assert not fused[0][g.n_nodes:].any() and not fused[1][g.n_nodes:].any()

@@ -15,6 +15,12 @@ Held, all bit for bit (the CPU's sums are the card kernel's contract):
 * ``SegmentSpmm`` (both of DiDiC's uses: ``make_spmm``'s segment route and
   the overlay tables) equals the plain version, the overlay's dead rows
   exactly 0;
+* the three epilogues (DiDiC's secondary, primary and smoothing updates
+  fused with their product) equal the step's eager expressions around the
+  bare product, on DiDiC's matrices at F 1-33 and on the overlay with its
+  dead rows;
+* the tile plan covers every short row once, in order, within its edge and
+  row budgets, and holds no long row;
 * no CPU call launches a kernel, and a CUDA request without a card raises.
 """
 
@@ -28,7 +34,10 @@ from repro.core.didic import _spmm_segment as jax_spmm_segment
 from repro_torch import kernels
 from repro_torch.core import didic
 from repro_torch.graphs import datasets
-from repro_torch.kernels.segment_spmm import csr_matrix, segment_spmm, segment_spmm_ref
+from repro_torch.kernels.segment_spmm import (
+    csr_matrix, segment_spmm, segment_spmm_primary, segment_spmm_ref, segment_spmm_secondary, segment_spmm_smooth,
+    tile_plan,
+)
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
 torch.set_num_threads(1)
@@ -163,3 +172,115 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(monkeypatch):
         didic.make_spmm(g, didic.DidicConfig(k=4, iterations=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         didic.didic_partition(g, didic.DidicConfig(k=4, iterations=2), seed=0)
+
+
+def _eager_updates(spmm, x, l, degc, parts, live=None):
+    """DiDiC's three updates as the step writes them, around the bare
+    product ``spmm`` (``core/didic.py``'s ``_make_step``)."""
+    k = x.shape[1]
+    onehot = (parts[:, None] == torch.arange(k, dtype=torch.int32)[None, :]).to(torch.float32)
+    if live is not None:
+        onehot = onehot * live.to(torch.float32)[:, None]
+    benefit = 1.0 + (didic._BENEFIT - 1.0) * onehot
+    safe_deg = torch.clamp(degc, min=1e-6)[:, None]
+    lb = l / benefit
+    l2 = l - degc[:, None] * lb + spmm(lb)
+    return {
+        "secondary": (l2, l2 / benefit),
+        "primary": x + l - degc[:, None] * x + spmm(x),
+        "smooth": 0.5 * x + 0.5 * spmm(x) / safe_deg,
+        "lb": lb,
+    }
+
+
+def _fused_updates(a, x, l, degc, parts, lb, live=None):
+    return {
+        "secondary": segment_spmm_secondary(lb, a, l, degc, parts, didic._BENEFIT, live),
+        "primary": segment_spmm_primary(x, a, l, degc),
+        "smooth": segment_spmm_smooth(x, a, torch.clamp(degc, min=1e-6)),
+    }
+
+
+def _assert_updates_equal(got, want):
+    for name in ("primary", "smooth"):
+        assert np.array_equal(_bits(got[name]), _bits(want[name])), name
+    for i, part in enumerate(("l", "lb")):
+        assert np.array_equal(_bits(got["secondary"][i]), _bits(want["secondary"][i])), part
+
+
+@pytest.mark.parametrize("f", [1, 3, 4, 8, 33])
+@pytest.mark.parametrize("name", ["filesystem", "gis", "twitter"])
+def test_epilogues_equal_the_eager_expressions(name, f):
+    g = datasets.load(name, scale=0.003)
+    s, r, ce, degc = didic._edge_coefficients(g)
+    a = csr_matrix(torch.as_tensor(s), torch.as_tensor(r), torch.as_tensor(ce), g.n_nodes)
+    rng = np.random.default_rng(10 + f)
+    x, l = (torch.as_tensor(_spread(rng, (g.n_nodes, f))) for _ in range(2))
+    parts = torch.as_tensor(rng.integers(0, f, g.n_nodes).astype(np.int32))
+    degc = torch.as_tensor(degc)
+    want = _eager_updates(lambda v: segment_spmm(v, a), x, l, degc, parts)
+    _assert_updates_equal(_fused_updates(a, x, l, degc, parts, want["lb"]), want)
+
+
+@pytest.mark.parametrize("name", ["filesystem", "twitter"])
+def test_epilogues_on_the_overlay_keep_dead_rows_zero(name):
+    g = datasets.load(name, scale=0.003)
+    g.ensure_store(headroom=1.5)
+    spmm, degc = didic._overlay_tables(g, "cpu")
+    n_rows, n = spmm.a.n, g.n_nodes
+    live = torch.arange(n_rows) < n
+    rng = np.random.default_rng(2)
+    x, l = (torch.as_tensor(_spread(rng, (n_rows, 4))) * live[:, None] for _ in range(2))
+    parts = torch.as_tensor(rng.integers(0, 4, n_rows).astype(np.int32))
+    want = _eager_updates(spmm, x, l, degc, parts, live)
+    got = _fused_updates(spmm.a, x, l, degc, parts, want["lb"], live)
+    _assert_updates_equal(got, want)
+    for t in (got["primary"], got["smooth"], *got["secondary"]):
+        assert not t[n:].any()
+
+
+def _check_plan(offsets, tiles, long_at, max_edges, max_rows):
+    """Every row of at most ``long_at`` edges in exactly one tile, the tiles
+    in row order, each a run of short rows within both budgets."""
+    lengths = np.diff(offsets)
+    covered = np.concatenate([np.arange(t0, t1) for t0, t1, _, _ in tiles]) if len(tiles) else np.zeros(0, int)
+    assert np.array_equal(covered, np.flatnonzero(lengths <= long_at))   # once each, ascending
+    assert (tiles[:, 1] > tiles[:, 0]).all() and (tiles[:, 1] - tiles[:, 0] <= max_rows).all()
+    assert np.array_equal(tiles[:, 2], offsets[tiles[:, 0]]) and np.array_equal(tiles[:, 3], offsets[tiles[:, 1]])
+    assert (tiles[:, 3] - tiles[:, 2] <= max_edges).all()
+
+
+@pytest.mark.parametrize("max_edges,max_rows", [(2048, 256), (64, 256), (40, 3)])
+def test_tile_plan_covers_every_short_row_once(max_edges, max_rows):
+    at = 20
+    # empty rows at both ends and inside, a row of exactly long_at edges,
+    # a short row alone between two long rows (a single-row tile), long rows
+    # back to back, and runs of short rows
+    lengths = np.array([0, 0, 3, at, at + 1, 5, at + 7, at + 1, 0, 1, 2, at, at, 0, 0] + [2] * 300 + [0, 0])
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    tiles = tile_plan(offsets, at, max_edges, max_rows)
+    _check_plan(offsets, tiles, at, max_edges, max_rows)
+    assert [5, 6] in tiles[:, :2].tolist()          # the single-row tile
+    assert not tiles.size or tiles[0, 0] == 0
+
+
+@pytest.mark.parametrize("name", ["filesystem", "gis", "twitter"])
+def test_tile_plan_on_didic_matrices(name):
+    g = datasets.load(name, scale=0.003)
+    s, r, ce, _ = didic._edge_coefficients(g)
+    a = csr_matrix(torch.as_tensor(s), torch.as_tensor(r), torch.as_tensor(ce), g.n_nodes)
+    offsets = a.offsets.numpy().astype(np.int64)
+    tiles = a.tiles.numpy()
+    _check_plan(offsets, tiles, a.long_at, spmm_ops.TILE_EDGES, spmm_ops.TILE_ROWS)
+    assert a.tile_edges == (tiles[:, 3] - tiles[:, 2]).max() and a.offsets.dtype == torch.int32
+    assert np.array_equal(np.setdiff1d(np.arange(g.n_nodes), np.concatenate([np.arange(t0, t1) for t0, t1, _, _ in tiles])),
+                          np.sort(a.long_ids.numpy()))
+
+
+def test_tile_plan_edge_cases():
+    assert tile_plan(np.zeros(1, np.int64), 4).shape == (0, 4)                 # no rows
+    assert tile_plan(np.array([0, 9]), 4).shape == (0, 4)                      # one long row only
+    assert tile_plan(np.zeros(4, np.int64), 4).tolist() == [[0, 3, 0, 0]]      # empty rows only
+    assert tile_plan(np.array([0, 4, 8]), 4, max_edges=4).tolist() == [[0, 1, 0, 4], [1, 2, 4, 8]]
+    with pytest.raises(ValueError, match="would not fit"):
+        tile_plan(np.array([0, 1]), 9, max_edges=8)
